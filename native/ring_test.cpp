@@ -10,7 +10,7 @@
 #include "spsc_ring.hpp"
 
 int main() {
-  gpu_sdr_tpu::SpscRing ring(64, 1024);
+  gpu_sdr::SpscRing ring(64, 1024);
   constexpr int N = 1000000;
 
   std::thread producer([&] {

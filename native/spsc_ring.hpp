@@ -3,7 +3,7 @@
 // Native equivalent of the reference's preallocator pinned-buffer pools and
 // boost::lockfree queues (headers/USRP_server_memory_management.hpp:103-273,
 // headers/USRP_server_settings.hpp:230-232): fixed-size slots are recycled
-// between a producer (the Python/TPU pipeline pushing packets) and a
+// between a producer (the Python/JAX pipeline pushing packets) and a
 // consumer (the TCP streamer thread) without locks in the hot path.
 
 #pragma once
@@ -14,7 +14,7 @@
 #include <cstring>
 #include <vector>
 
-namespace gpu_sdr_tpu {
+namespace gpu_sdr {
 
 class SpscRing {
  public:
@@ -83,4 +83,4 @@ class SpscRing {
   std::atomic<std::size_t> tail_;  // consumer writes
 };
 
-}  // namespace gpu_sdr_tpu
+}  // namespace gpu_sdr

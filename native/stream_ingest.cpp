@@ -5,7 +5,7 @@
 // thread recv()s a raw complex64 IQ byte stream from one connected producer
 // (the radio / DMA bridge stand-in), reassembles it into fixed-size blocks
 // (the reference's fragmentation handling, :1546-1560), and hands the blocks
-// to the Python/TPU pipeline through a lock-free SPSC ring (the reference's
+// to the Python/JAX pipeline through a lock-free SPSC ring (the reference's
 // pinned-pool + rx_queue).  Ring-full drops are counted like UHD overflow
 // errors and ride the RX_wrapper.errors field.  Exposed as a C API for
 // ctypes.
@@ -28,7 +28,7 @@
 
 namespace {
 
-using gpu_sdr_tpu::SpscRing;
+using gpu_sdr::SpscRing;
 
 struct IngestServer {
   int listen_fd = -1;
@@ -56,7 +56,7 @@ struct IngestServer {
     // deep kernel buffer, set on the LISTENING socket: the TCP window
     // scale factor is negotiated at SYN time from this socket's buffer,
     // so setting it only on the accepted fd (post-handshake) caps the
-    // advertised window below the 8 MB intent (ADVICE r4); accepted
+    // advertised window below the 8 MB intent; accepted
     // sockets inherit it
     int buf = 8 * 1024 * 1024;
     ::setsockopt(listen_fd, SOL_SOCKET, SO_RCVBUF, &buf, sizeof(buf));

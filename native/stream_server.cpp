@@ -26,7 +26,7 @@
 
 namespace {
 
-using gpu_sdr_tpu::SpscRing;
+using gpu_sdr::SpscRing;
 
 struct StreamServer {
   int listen_fd = -1;

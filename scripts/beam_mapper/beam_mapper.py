@@ -14,7 +14,7 @@ import h5py
 import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", ".."))
-import gpu_sdr_tpu.pyusrp as u  # noqa: E402
+import gpu_sdr.pyusrp as u  # noqa: E402
 from velmex import open_stage  # noqa: E402
 
 

@@ -10,7 +10,7 @@ import sys
 import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-import gpu_sdr_tpu.pyusrp as u  # noqa: E402
+import gpu_sdr.pyusrp as u  # noqa: E402
 
 
 def main():

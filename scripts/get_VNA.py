@@ -9,7 +9,7 @@ import sys
 import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-import gpu_sdr_tpu.pyusrp as u  # noqa: E402
+import gpu_sdr.pyusrp as u  # noqa: E402
 
 
 def run(gain, iters, rate, freq, front_end, f0, f1, lapse, points, ntones,

@@ -19,7 +19,7 @@ import threading
 import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", ".."))
-import gpu_sdr_tpu.pyusrp as u  # noqa: E402
+import gpu_sdr.pyusrp as u  # noqa: E402
 
 DATA_QUEUE: "queue.Queue" = queue.Queue()
 HERE = os.path.dirname(os.path.abspath(__file__))

@@ -11,11 +11,11 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-import gpu_sdr_tpu.pyusrp as u  # noqa: E402
-from gpu_sdr_tpu.engine.sinks import Sink  # noqa: E402
-from gpu_sdr_tpu.measure import run_measurement  # noqa: E402
-from gpu_sdr_tpu.params import (AntennaParams, AntMode, UsrpParams,  # noqa: E402
-                                WaveType)
+import gpu_sdr.pyusrp as u  # noqa: E402
+from gpu_sdr.engine.sinks import Sink  # noqa: E402
+from gpu_sdr.measure import run_measurement  # noqa: E402
+from gpu_sdr.params import (AntennaParams, AntMode, UsrpParams,  # noqa: E402
+                            WaveType)
 
 
 class CountingSink(Sink):

@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from gpu_sdr_tpu.client import files as Ufiles
-from gpu_sdr_tpu.client import noise as Unoise
-from gpu_sdr_tpu.engine import make_generator
-from gpu_sdr_tpu.engine.channel import ChainChannel, DropoutChannel, IdealChannel
-from gpu_sdr_tpu.params import AntennaParams, AntMode, WaveType
+from gpu_sdr.client import files as Ufiles
+from gpu_sdr.client import noise as Unoise
+from gpu_sdr.engine import make_generator
+from gpu_sdr.engine.channel import ChainChannel, DropoutChannel, IdealChannel
+from gpu_sdr.params import AntennaParams, AntMode, WaveType
 
 
 @pytest.fixture

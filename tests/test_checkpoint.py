@@ -4,10 +4,10 @@ the continuation must be bit-identical to an uninterrupted run."""
 import numpy as np
 import pytest
 
-from gpu_sdr_tpu.engine import make_demodulator
-from gpu_sdr_tpu.engine.checkpoint import load_state, save_state
-from gpu_sdr_tpu.ops import cplx
-from gpu_sdr_tpu.params import AntennaParams, AntMode, WaveType
+from gpu_sdr.engine import make_demodulator
+from gpu_sdr.engine.checkpoint import load_state, save_state
+from gpu_sdr.ops import cplx
+from gpu_sdr.params import AntennaParams, AntMode, WaveType
 
 RNG = np.random.default_rng(21)
 

@@ -6,11 +6,11 @@ mesh."""
 import numpy as np
 import pytest
 
-from gpu_sdr_tpu.client import files as Ufiles
-from gpu_sdr_tpu.client import triggers as Utrig
-from gpu_sdr_tpu.measure import run_measurement
-from gpu_sdr_tpu.parallel import make_mesh
-from gpu_sdr_tpu.params import AntennaParams, AntMode, UsrpParams, WaveType
+from gpu_sdr.client import files as Ufiles
+from gpu_sdr.client import triggers as Utrig
+from gpu_sdr.measure import run_measurement
+from gpu_sdr.parallel import make_mesh
+from gpu_sdr.params import AntennaParams, AntMode, UsrpParams, WaveType
 
 
 @pytest.fixture

@@ -3,12 +3,12 @@
 import numpy as np
 import pytest
 
-from gpu_sdr_tpu.engine import make_demodulator, run_pipeline
-from gpu_sdr_tpu.engine.replay import (DEVICE_REPLAY_MAX_BYTES,
-                                       DeviceReplay, can_device_replay)
-from gpu_sdr_tpu.engine.sinks import MemorySink
-from gpu_sdr_tpu.engine.sources import ArraySource, ReplaySource
-from gpu_sdr_tpu.params import AntennaParams, AntMode, WaveType
+from gpu_sdr.engine import make_demodulator, run_pipeline
+from gpu_sdr import golden
+from gpu_sdr.engine.replay import DeviceReplay, can_device_replay
+from gpu_sdr.engine.sinks import MemorySink
+from gpu_sdr.engine.sources import ArraySource, ReplaySource
+from gpu_sdr.params import AntennaParams, AntMode, WaveType
 
 RNG = np.random.default_rng(3)
 
@@ -66,10 +66,10 @@ class _LoopArray(ArraySource):
 def test_run_measurement_dispatches_device_replay(tmp_path, monkeypatch):
     """run_measurement(source=ReplaySource) with a small recording takes
     the device-resident path and matches the host-fed result."""
-    from gpu_sdr_tpu import measure as measure_mod
-    from gpu_sdr_tpu.engine import replay as replay_mod
-    from gpu_sdr_tpu.measure import run_measurement
-    from gpu_sdr_tpu.params import UsrpParams
+    from gpu_sdr import measure as measure_mod
+    from gpu_sdr.engine import replay as replay_mod
+    from gpu_sdr.measure import run_measurement
+    from gpu_sdr.params import UsrpParams
 
     monkeypatch.chdir(tmp_path)
     rec = _rec(60_000)
@@ -92,7 +92,7 @@ def test_run_measurement_dispatches_device_replay(tmp_path, monkeypatch):
     assert calls, "device replay was not dispatched"
 
     # host-fed reference: force the budget to zero
-    monkeypatch.setattr(replay_mod, "DEVICE_REPLAY_MAX_BYTES", 0)
+    monkeypatch.setattr(replay_mod, "device_replay_max_bytes", lambda: 0)
     src2 = ReplaySource(str(tmp_path / "rec.npy"))
     assert not can_device_replay(src2)
     sink_h = MemorySink()
@@ -100,36 +100,33 @@ def test_run_measurement_dispatches_device_replay(tmp_path, monkeypatch):
     assert np.array_equal(sink_d.data, sink_h.data)
 
 
-def test_device_replay_kernel_path(monkeypatch):
-    """With Pallas forced on, looped commensurate DIRECT replay takes the
-    scalar-prefetch kernel and matches the host-fed path at tf32 grade."""
-    from gpu_sdr_tpu import golden
-    monkeypatch.setenv("GPU_SDR_TPU_PALLAS", "1")
+def test_device_replay_kernel_path():
+    """Looped commensurate DIRECT replay runs the resident scan, which
+    bit-matches the host-fed path and agrees with the float64 oracle."""
     rx = _rx(samples=200_000, buffer_len=50_000)
     rec = _rec(100_000)                           # 2 blocks, looped
     dr = DeviceReplay(rx, rec, loop=True)
-    assert dr._kernel_path is not None
-    sink_k = MemorySink()
-    dr.run([sink_k])
-
-    monkeypatch.setenv("GPU_SDR_TPU_PALLAS", "0")
-    dr2 = DeviceReplay(rx, rec, loop=True)
-    assert dr2._kernel_path is None
-    sink_s = MemorySink()
-    dr2.run([sink_s])
-    assert sink_k.data.shape == sink_s.data.shape
-    assert golden.snr_db(sink_s.data, sink_k.data) > 90.0
+    assert dr.path == "scan"
+    sink = MemorySink()
+    dr.run([sink])
+    demod = make_demodulator(rx)
+    sink_h = MemorySink()
+    run_pipeline(demod, _LoopArray(rec), [sink_h])
+    assert np.array_equal(sink.data, sink_h.data)
+    ref = golden.expected_stream(rx, np.resize(rec, 200_000))
+    assert golden.snr_db(ref, sink.data) > 90.0
 
 
 def test_budget_gate(monkeypatch):
-    from gpu_sdr_tpu.engine import replay as replay_mod
+    from gpu_sdr.engine import replay as replay_mod
     src = ArraySource(np.zeros(128, np.complex64))
     assert can_device_replay(src)
     # over budget -> host-fed path
-    monkeypatch.setattr(replay_mod, "DEVICE_REPLAY_MAX_BYTES", 128 * 8 - 1)
+    monkeypatch.setattr(replay_mod, "device_replay_max_bytes",
+                        lambda: 128 * 8 - 1)
     assert not replay_mod.can_device_replay(src)
     # sources without a recording array -> host-fed path
-    from gpu_sdr_tpu.engine.sources import WhiteNoiseSource
+    from gpu_sdr.engine.sources import WhiteNoiseSource
     assert not replay_mod.can_device_replay(WhiteNoiseSource())
 
     class NoData(ArraySource):
@@ -142,48 +139,48 @@ def test_budget_gate(monkeypatch):
     assert not replay_mod.can_device_replay(NoData())
 
 
-def test_device_replay_lane_padded_matches_unpadded(monkeypatch):
-    """config.pad_lanes on the row-major replay kernel: a 9..127-channel
-    recording is demodulated at 128 padded channels (dense writes, +36%
-    measured on chip — tools/perf_replay_pad.py) and the host-side slice
-    in run_chunked restores the logical channels exactly."""
-    monkeypatch.setenv("GPU_SDR_TPU_PALLAS", "1")
-    from gpu_sdr_tpu import golden
-    from gpu_sdr_tpu.engine.replay import pad_rx_freqs
+@pytest.mark.parametrize("stats", [
+    {"bytes_limit": 60_000, "bytes_in_use": 0},
+    None,
+])
+def test_replay_budget_from_memory_stats(monkeypatch, stats):
+    """The one-upload budget is a stated share of the device's memory
+    limit; a backend reporting none (the CPU) gets the fixed host value."""
+    from gpu_sdr.engine import replay as replay_mod
+
+    class _Dev:
+        def memory_stats(self):
+            return stats
+
+    monkeypatch.setattr(replay_mod.jax, "devices", lambda: [_Dev()])
+    want = (replay_mod.HOST_REPLAY_MAX_BYTES if stats is None
+            else int(60_000 * replay_mod.REPLAY_MEMORY_SHARE))
+    assert replay_mod.device_replay_max_bytes() == want
+
+
+def test_device_replay_lane_padded_matches_unpadded():
+    """A 10-channel looped DIRECT recording replays at its own channel
+    count and matches the oracle across the loop seam."""
     rate = 1_000_000
     freqs = [int(f) for f in np.linspace(-400_000, 400_000, 10)]
     rx = AntennaParams(mode=AntMode.RX, rate=rate, buffer_len=20_000,
                        samples=100_000, decim=10, pf_average=4,
                        freq=freqs, wave_type=[WaveType.DIRECT] * 10)
     rec = _rec(50_000)                 # looped: matches the 50k plan block
-
-    monkeypatch.setenv("GPU_SDR_TPU_PAD_LANES", "0")
-    assert len(pad_rx_freqs(freqs, rate)) == 10
-    dr0 = DeviceReplay(rx, rec, blocks_per_exec=2, loop=True)
-    assert dr0.path == "replay_kernel", dr0.path
-    s0 = MemorySink()
-    dr0.run([s0])
-
-    monkeypatch.setenv("GPU_SDR_TPU_PAD_LANES", "1")
-    assert len(pad_rx_freqs(freqs, rate)) == 128
-    dr1 = DeviceReplay(rx, rec, blocks_per_exec=2, loop=True)
-    assert dr1.path == "replay_kernel", dr1.path
-    s1 = MemorySink()
-    dr1.run([s1])
-
-    assert s1.data.shape == s0.data.shape
-    snr = golden.snr_db(s0.data, s1.data)
-    assert snr > 110, f"padded vs unpadded replay: {snr:.1f} dB"
+    dr = DeviceReplay(rx, rec, blocks_per_exec=2, loop=True)
+    assert dr.path == "scan", dr.path
+    sink = MemorySink()
+    dr.run([sink])
+    assert sink.data.shape == (100_000 // 10, 10)
+    ref = golden.expected_stream(rx, np.resize(rec, 100_000))
+    assert golden.snr_db(ref, sink.data) > 90.0
 
 
 @pytest.mark.parametrize("wave", [WaveType.TONES, WaveType.NOISE])
-def test_channelizer_replay_matches_host_fed(monkeypatch, wave):
-    """The round-5 fused channelizer replay (channelizer_at: presum +
-    two-stage DFT reading the transposed resident recording in place)
-    must match the host-fed pipeline for selected-tone AND full-spectrum
-    replay, across blocks and the loop seam."""
-    monkeypatch.setenv("GPU_SDR_TPU_PALLAS", "1")
-    from gpu_sdr_tpu import golden
+def test_channelizer_replay_matches_host_fed(wave):
+    """TONES (selected tones) and NOISE (full spectrum) replay of a
+    looped recording: the resident scan matches the host-fed pipeline
+    and the oracle across blocks and the loop seam."""
     rate, nfft = 1_000_000, 1000
     bin_hz = rate // nfft
     rx = AntennaParams(mode=AntMode.RX, rate=rate, buffer_len=128_000,
@@ -193,23 +190,14 @@ def test_channelizer_replay_matches_host_fed(monkeypatch, wave):
                                            else 2))
     rec = _rec(128_000)
     dr = DeviceReplay(rx, rec, blocks_per_exec=2, loop=True)
-    assert dr.path == "channelizer_at", dr.path
+    assert dr.path == "scan", dr.path
     s_k = MemorySink()
     dr.run([s_k])
 
-    class _Loop:
-        def blocks(self, block_len, n_blocks):
-            for i in range(n_blocks):
-                s = (i * block_len) % len(rec)
-                # wrap-around copy (loop seam semantics)
-                idx = (np.arange(block_len) + s) % len(rec)
-                yield rec[idx]
-
     demod = make_demodulator(rx)
     s_h = MemorySink()
-    run_pipeline(demod, _Loop(), [s_h])
-
-    n = min(len(s_k.data), len(s_h.data))
-    assert n > 0
-    snr = golden.snr_db(s_h.data[:n], s_k.data[:n])
-    assert snr > 85, f"channelizer_at vs host-fed ({wave}): {snr:.1f} dB"
+    run_pipeline(demod, _LoopArray(rec), [s_h])
+    assert np.array_equal(s_h.data, s_k.data)
+    ref = golden.expected_stream(rx, np.resize(rec, 256_000))
+    n = min(len(ref), len(s_k.data))
+    assert golden.snr_db(ref[:n], s_k.data[:n]) > 85

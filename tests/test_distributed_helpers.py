@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from gpu_sdr_tpu.parallel import make_mesh
-from gpu_sdr_tpu.parallel.distributed import host_local_block
+from gpu_sdr.parallel import make_mesh
+from gpu_sdr.parallel.distributed import host_local_block
 
 
 def test_host_local_block_covers_everything():

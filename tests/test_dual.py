@@ -5,12 +5,12 @@ reference's synchronized per-frontend thread chains
 
 import numpy as np
 
-from gpu_sdr_tpu.client import files as Ufiles
-from gpu_sdr_tpu.engine.dual import DualFused, plan_dual
-from gpu_sdr_tpu.engine.fused import FusedLoopback
-from gpu_sdr_tpu.engine.sinks import MemorySink
-from gpu_sdr_tpu.measure import run_measurement
-from gpu_sdr_tpu.params import AntennaParams, AntMode, UsrpParams, WaveType
+from gpu_sdr.client import files as Ufiles
+from gpu_sdr.engine.dual import DualFused, plan_dual
+from gpu_sdr.engine.fused import FusedLoopback
+from gpu_sdr.engine.sinks import MemorySink
+from gpu_sdr.measure import run_measurement
+from gpu_sdr.params import AntennaParams, AntMode, UsrpParams, WaveType
 
 
 def _fe(params, fe, tx_freq, rx_freq, rate=1_000_000, samples=400_000):
@@ -102,8 +102,8 @@ import jax
 import pytest
 from jax.sharding import Mesh
 
-from gpu_sdr_tpu.engine.dual import DualShardedFused
-from gpu_sdr_tpu.parallel.fused_sharded import ShardedFusedLoopback
+from gpu_sdr.engine.dual import DualShardedFused
+from gpu_sdr.parallel.fused_sharded import ShardedFusedLoopback
 
 
 def _mesh(t, c):
@@ -141,7 +141,7 @@ def test_plan_dual_sequential_fallback_warns(caplog):
     p.B_RX2.chirp_f = [-7000]
     p.B_RX2.chirp_t = [0.1]
     p.B_RX2.swipe_s = [100]
-    with caplog.at_level(logging.WARNING, logger="gpu_sdr_tpu.dual"):
+    with caplog.at_level(logging.WARNING, logger="gpu_sdr.dual"):
         assert plan_dual(p, mesh=_mesh(4, 2)) is None
     assert any("SEQUENTIALLY" in r.message for r in caplog.records)
 
@@ -194,42 +194,30 @@ def test_dual_sharded_shared_timebase_phase_alignment(tmp_path,
         < 1e-2, "A/B timebases differ"
 
 
-def test_dual_lane_padded_chains_sliced(monkeypatch):
-    """Lane-padded fold chains inside DualFused: the lock-step drain
-    must slice the dead channels host-side exactly like run_chunked
-    (the padded chain emits 128 channels; sinks get the logical
-    count)."""
-    monkeypatch.setenv("GPU_SDR_TPU_PALLAS", "1")
-    from gpu_sdr_tpu import golden
+def test_dual_lane_padded_chains_sliced():
+    """Two fold chains with different comb sets inside DualFused: each
+    frontend's sinks get its own 3-channel stream, matching the
+    oracle."""
+    from gpu_sdr import golden
     rate = 1_000_000
     freqs_a = [12_345, -67_891, 300_001]       # non-periodic -> fold
     freqs_b = [23_456, -45_678, 210_001]
-
-    def build():
-        pairs = []
-        for fe, fs in (("A_RX2", freqs_a), ("B_RX2", freqs_b)):
-            tx = AntennaParams(mode=AntMode.TX, rate=rate,
-                               buffer_len=100_000, samples=400_000,
-                               freq=fs, ampl=[0.3] * 3,
-                               wave_type=[WaveType.TONES] * 3)
-            rx = AntennaParams(mode=AntMode.RX, rate=rate,
-                               buffer_len=100_000, samples=400_000,
-                               freq=fs, decim=100, pf_average=4,
-                               wave_type=[WaveType.DIRECT] * 3)
-            pairs.append((fe, tx, rx))
-        return DualFused(pairs, blocks_per_exec=2)
-
-    monkeypatch.setenv("GPU_SDR_TPU_PAD_LANES", "0")
-    d0 = build()
-    sinks0 = [MemorySink(), MemorySink()]
-    d0.run([[s] for s in sinks0])
-
-    monkeypatch.setenv("GPU_SDR_TPU_PAD_LANES", "1")
-    d1 = build()
-    assert all(ch._chain.out_channels == 128 for ch in d1.chains)
-    sinks1 = [MemorySink(), MemorySink()]
-    d1.run([[s] for s in sinks1])
-
-    for s0, s1 in zip(sinks0, sinks1):
-        assert s1.data.shape == s0.data.shape  # 3 channels, not 128
-        assert golden.snr_db(s0.data, s1.data) > 110
+    pairs = []
+    for fe, fs in (("A_RX2", freqs_a), ("B_RX2", freqs_b)):
+        tx = AntennaParams(mode=AntMode.TX, rate=rate,
+                           buffer_len=100_000, samples=400_000,
+                           freq=fs, ampl=[0.3] * 3,
+                           wave_type=[WaveType.TONES] * 3)
+        rx = AntennaParams(mode=AntMode.RX, rate=rate,
+                           buffer_len=100_000, samples=400_000,
+                           freq=fs, decim=100, pf_average=4,
+                           wave_type=[WaveType.DIRECT] * 3)
+        pairs.append((fe, tx, rx))
+    d = DualFused(pairs, blocks_per_exec=2)
+    assert [ch.path for ch in d.chains] == ["fold_chain"] * 2
+    sinks = [MemorySink(), MemorySink()]
+    d.run([[s] for s in sinks])
+    for s, (_fe, tx, rx) in zip(sinks, pairs):
+        assert s.data.shape == (4000, 3)
+        x = golden.tone_block(tx.freq, tx.ampl, rate, 0, 400_000)
+        assert golden.snr_db(golden.expected_stream(rx, x), s.data) > 90

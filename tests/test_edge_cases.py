@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from gpu_sdr_tpu import golden
-from gpu_sdr_tpu.ops import cplx
-from gpu_sdr_tpu.ops.chirp import ChirpConfig, chirp_block
-from gpu_sdr_tpu.ops.pfb import PFBConfig, pfb_frames, pfb_spare_init
+from gpu_sdr import golden
+from gpu_sdr.ops import cplx
+from gpu_sdr.ops.chirp import ChirpConfig, chirp_block
+from gpu_sdr.ops.pfb import PFBConfig, pfb_frames, pfb_spare_init
 
 RNG = np.random.default_rng(77)
 
@@ -47,8 +47,8 @@ def test_block_shorter_than_period_wraps():
 
 
 def test_direct_single_channel():
-    from gpu_sdr_tpu.engine import make_demodulator
-    from gpu_sdr_tpu.params import AntennaParams, AntMode, WaveType
+    from gpu_sdr.engine import make_demodulator
+    from gpu_sdr.params import AntennaParams, AntMode, WaveType
     p = AntennaParams(mode=AntMode.RX, rate=1_000_000, decim=1,
                       pf_average=1, buffer_len=50_000, samples=50_000,
                       freq=[0], wave_type=[WaveType.DIRECT])

@@ -6,12 +6,12 @@ cpp/USRP_server_link_threads.cpp / cpp/USRP_hardware_manager.cpp)."""
 import numpy as np
 import pytest
 
-from gpu_sdr_tpu import golden
-from gpu_sdr_tpu.engine import (make_demodulator, make_generator,
-                                plan_blocks, run_pipeline)
-from gpu_sdr_tpu.engine.sinks import MemorySink
-from gpu_sdr_tpu.engine.sources import ArraySource, LoopbackSource
-from gpu_sdr_tpu.params import AntennaParams, AntMode, WaveType
+from gpu_sdr import golden
+from gpu_sdr.engine import (make_demodulator, make_generator,
+                            plan_blocks, run_pipeline)
+from gpu_sdr.engine.sinks import MemorySink
+from gpu_sdr.engine.sources import ArraySource, LoopbackSource
+from gpu_sdr.params import AntennaParams, AntMode, WaveType
 
 
 def test_planner_commensurate():

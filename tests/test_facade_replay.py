@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-import gpu_sdr_tpu.pyusrp as u
-from gpu_sdr_tpu import golden
-from gpu_sdr_tpu.engine.sources import ReplaySource
-from gpu_sdr_tpu.params import AntennaParams, AntMode, UsrpParams, WaveType
+import gpu_sdr.pyusrp as u
+from gpu_sdr import golden
+from gpu_sdr.engine.sources import ReplaySource
+from gpu_sdr.params import AntennaParams, AntMode, UsrpParams, WaveType
 
 
 def test_facade_exports_reference_api():

@@ -4,10 +4,10 @@ direct_demodulator_integer :45-86 + FIR cpp/fir.cu)."""
 
 import numpy as np
 
-from gpu_sdr_tpu import golden
-from gpu_sdr_tpu.ops import cplx
-from gpu_sdr_tpu.ops.ddc import DirectDDCConfig
-from gpu_sdr_tpu.ops.fold_chain import TonesDirectFoldChain
+from gpu_sdr import golden
+from gpu_sdr.ops import cplx
+from gpu_sdr.ops.ddc import DirectDDCConfig
+from gpu_sdr.ops.fold_chain import TonesDirectFoldChain
 
 RATE = 1_000_000
 M, F = 20, 4
@@ -70,8 +70,8 @@ def test_fold_chain_distinct_rx_tones():
 def test_fused_loopback_dispatches_fold_chain():
     """A non-periodic comb through the public FusedLoopback must ride
     the fold chain and still match the golden end-to-end."""
-    from gpu_sdr_tpu.engine.fused import FusedLoopback
-    from gpu_sdr_tpu.params import AntennaParams, AntMode, WaveType
+    from gpu_sdr.engine.fused import FusedLoopback
+    from gpu_sdr.params import AntennaParams, AntMode, WaveType
 
     freqs = [int(f) for f in np.linspace(-0.4 * RATE, 0.4 * RATE, 17)]
     ampls = [0.1] * len(freqs)

@@ -5,12 +5,12 @@ import os
 import numpy as np
 import pytest
 
-from gpu_sdr_tpu.client import files as Ufiles
-from gpu_sdr_tpu.client import full_spec as Ufs
-from gpu_sdr_tpu.client import noise as Unoise
-from gpu_sdr_tpu.client import plotting as Uplot
-from gpu_sdr_tpu.client import triggers as Utrig
-from gpu_sdr_tpu.client import vna as Uvna
+from gpu_sdr.client import files as Ufiles
+from gpu_sdr.client import full_spec as Ufs
+from gpu_sdr.client import noise as Unoise
+from gpu_sdr.client import plotting as Uplot
+from gpu_sdr.client import triggers as Utrig
+from gpu_sdr.client import vna as Uvna
 
 
 @pytest.fixture
@@ -156,8 +156,8 @@ def test_plotting_html_backend(tmp_chdir):
 def test_plot_resonators_html(tmp_chdir):
     """Fit resonators (simulated channel) then render the interactive
     resonator grid."""
-    from gpu_sdr_tpu.client import fitting as Ufit
-    from gpu_sdr_tpu.engine.channel import make_resonator_channel
+    from gpu_sdr.client import fitting as Ufit
+    from gpu_sdr.engine.channel import make_resonator_channel
     rate = int(1e6)
     chan = make_resonator_channel(
         rate, [dict(f0=-150_000.0, Qr=30.0, Qe_re=60.0)],
@@ -186,7 +186,7 @@ def test_plot_pfb_and_timestream_html(tmp_chdir):
     assert out.endswith(".html") and os.path.exists(out)
     assert "data:image/png;base64" in open(out).read()
 
-    from gpu_sdr_tpu.client import vna as Uvna2
+    from gpu_sdr.client import vna as Uvna2
     fn2 = Uvna2.Single_VNA(start_f=-100_000, last_f=100_000,
                            measure_t=0.05, n_points=100, tx_gain=0,
                            Rate=int(1e6), RF=0, iterations=3,

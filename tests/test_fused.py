@@ -4,11 +4,11 @@ host-driven pipeline for every fusable mode pair."""
 import numpy as np
 import pytest
 
-from gpu_sdr_tpu.engine import make_demodulator, make_generator, run_pipeline
-from gpu_sdr_tpu.engine.fused import FusedLoopback, can_fuse
-from gpu_sdr_tpu.engine.sinks import MemorySink
-from gpu_sdr_tpu.engine.sources import LoopbackSource
-from gpu_sdr_tpu.params import AntennaParams, AntMode, WaveType
+from gpu_sdr.engine import make_demodulator, make_generator, run_pipeline
+from gpu_sdr.engine.fused import FusedLoopback, can_fuse
+from gpu_sdr.engine.sinks import MemorySink
+from gpu_sdr.engine.sources import LoopbackSource
+from gpu_sdr.params import AntennaParams, AntMode, WaveType
 
 
 def _pair(wave_rx, rx_extra, n_tones=3, rate=1_000_000, samples=400_000):
@@ -67,12 +67,11 @@ def test_fused_vna_chirp():
     assert np.allclose(s21.imag, 0.0, atol=1e-4)
 
 
-def test_fused_tones_direct_single_kernel_chain(monkeypatch):
-    """Off-grid (non-periodic) combs dispatch onto the single-kernel
-    TONES->DIRECT chain (ops/pallas_chain.py) and match the host pipeline
-    at the tensorfloat32 grade."""
-    monkeypatch.setenv("GPU_SDR_TPU_PALLAS", "1")
-    from gpu_sdr_tpu import golden
+def test_fused_tones_direct_single_kernel_chain():
+    """Off-grid (non-periodic) combs dispatch onto the closed-form
+    TONES->DIRECT fold chain (ops/fold_chain.py) and match the host
+    pipeline and the oracle."""
+    from gpu_sdr import golden
     rate, n_tones = 1_000_000, 3
     freqs = [12_345, -67_891, 300_001]          # gcd 1 -> period == rate
     tx = AntennaParams(mode=AntMode.TX, rate=rate, buffer_len=100_000,
@@ -84,6 +83,7 @@ def test_fused_tones_direct_single_kernel_chain(monkeypatch):
                        pf_average=4,
                        wave_type=[WaveType.DIRECT] * n_tones, delay=1.0)
     fused = FusedLoopback(tx, rx, blocks_per_exec=2)
+    assert fused.path == "fold_chain"
     assert fused._init_states()[1] == (), "chain path must be selected"
     sink_f = MemorySink()
     fused.run([sink_f])
@@ -97,17 +97,18 @@ def test_fused_tones_direct_single_kernel_chain(monkeypatch):
     n = min(len(a), len(b))
     assert n > 0
     assert golden.snr_db(b[:n], a[:n]) > 90.0
+    x = golden.tone_block(freqs, [1.0 / n_tones] * n_tones, rate, 0,
+                          400_000)
+    assert golden.snr_db(golden.expected_stream(rx, x), a) > 90.0
 
 
-def test_fused_chirp_wavetable_chain(monkeypatch):
-    """With Pallas forced on, a commensurate CHIRP->CHIRP loopback uses
-    the one-period chirp wavetable + in-place lock-in and matches the
-    gen+demod scan path."""
-    from gpu_sdr_tpu import golden
-    monkeypatch.setenv("GPU_SDR_TPU_PALLAS", "1")
+def test_fused_chirp_wavetable_chain():
+    """A period-commensurate CHIRP->CHIRP loopback runs the generic
+    chirp synth + lock-in scan and matches the oracle."""
+    from gpu_sdr import golden
     rate = 1_000_000
     # steps=64 over 0.128 s -> length=2000; decim=1 -> ppt=2000;
-    # period = 128_000 = 2 blocks of L=64_000; nseg_pb = 32 (8-aligned)
+    # period = 128_000 = 2 blocks of L=64_000
     kw = dict(rate=rate, buffer_len=64_000, samples=512_000,
               freq=[-300_000], chirp_f=[300_000], chirp_t=[0.128],
               swipe_s=[64], delay=1.0)
@@ -116,24 +117,21 @@ def test_fused_chirp_wavetable_chain(monkeypatch):
     rx = AntennaParams(mode=AntMode.RX, decim=1,
                        wave_type=[WaveType.CHIRP], **kw)
     fused = FusedLoopback(tx, rx, blocks_per_exec=2)
-    assert fused._init_states()[1] == (), "wavetable chain must engage"
-    sink_k = MemorySink()
-    fused.run([sink_k])
-
-    monkeypatch.setenv("GPU_SDR_TPU_PALLAS", "0")
-    fused2 = FusedLoopback(tx, rx, blocks_per_exec=2)
-    assert fused2.gen is not None
-    sink_s = MemorySink()
-    fused2.run([sink_s])
-    assert sink_k.data.shape == sink_s.data.shape
-    assert golden.snr_db(sink_s.data, sink_k.data) > 90.0
+    assert fused.path == "generic_scan" and fused.gen is not None
+    sink = MemorySink()
+    fused.run([sink])
+    cp = golden.ChirpParameter(-300_000, 300_000, rate, 64, 0.128)
+    x = golden.chirp_signal(cp, 0, 512_000, scale=0.7)
+    ref = golden.expected_stream(rx, x)
+    assert sink.data.shape == ref.shape
+    assert golden.snr_db(ref, sink.data) > 90.0
 
 
-def test_fused_channelizer_chain_tones_and_noise(monkeypatch):
-    """The fused channelizer kernel chain (bench.py's production form)
-    engages for bin-quantized TONES->TONES / TONES->NOISE loopbacks and
-    matches tone amplitudes / the golden spectra."""
-    monkeypatch.setenv("GPU_SDR_TPU_PALLAS", "1")
+def test_fused_channelizer_chain_tones_and_noise():
+    """Bin-quantized TONES->TONES / TONES->NOISE loopbacks run the
+    generic synth + channelizer scan and match tone amplitudes and the
+    golden spectra."""
+    from gpu_sdr import golden
     rate = 1_000_000
     nfft = 1000
     bin_hz = rate // nfft
@@ -145,7 +143,7 @@ def test_fused_channelizer_chain_tones_and_noise(monkeypatch):
                        pf_average=4, buffer_len=100_000, samples=400_000,
                        freq=freqs, wave_type=[WaveType.TONES] * 2)
     fl = FusedLoopback(tx, rx)
-    from gpu_sdr_tpu.engine.fused import _ChannelizerWavetableChain
+    assert fl.path == "generic_scan"
     sink = MemorySink()
     fl.run([sink])
     data = sink.data
@@ -153,6 +151,8 @@ def test_fused_channelizer_chain_tones_and_noise(monkeypatch):
     steady = data[8:]
     assert np.allclose(np.abs(steady[:, 0]), 0.5, rtol=1e-2)
     assert np.allclose(np.abs(steady[:, 1]), 0.25, rtol=1e-2)
+    x = golden.tone_block(freqs, [0.5, 0.25], rate, 0, 400_000)
+    assert golden.snr_db(golden.expected_stream(rx, x), data) > 90.0
 
     # NOISE (full spectrum): tone bins carry the power, natural order
     rx_n = AntennaParams(mode=AntMode.RX, rate=rate, fft_tones=nfft,
@@ -162,7 +162,6 @@ def test_fused_channelizer_chain_tones_and_noise(monkeypatch):
     sink2 = MemorySink()
     fl2.run([sink2])
     spec = sink2.data.reshape(-1, nfft)[8:]
-    from gpu_sdr_tpu import golden
     b0 = golden.tone_bins(freqs, rate, nfft)
     mags = np.abs(spec).mean(axis=0)
     quiet = np.delete(mags, b0)
@@ -170,15 +169,10 @@ def test_fused_channelizer_chain_tones_and_noise(monkeypatch):
     assert mags[b0[1]] > 25 * quiet.mean()
 
 
-def test_fused_fold_kernel_lane_padded(monkeypatch):
-    """config.pad_lanes: a sub-128 channel count gets zero-amplitude
-    dummy tones up to the next 128 multiple (lane-DENSE output writes:
-    212 -> 429 GB/s measured, tools/perf_c3_ladder.py) and the dead
-    channels are sliced off host-side in run_chunked — results must
-    match the unpadded chain exactly (the dummies carry zero
-    amplitude)."""
-    monkeypatch.setenv("GPU_SDR_TPU_PALLAS", "1")
-    from gpu_sdr_tpu import golden
+def test_fused_fold_chain_state_donation():
+    """The fold chain's state is donated to each execution; a second
+    acquisition from the same FusedLoopback still starts from the
+    chain's intact masters and reproduces the first exactly."""
     rate = 1_000_000
     freqs = [12_345, -67_891, 300_001]          # non-periodic comb
     tx = AntennaParams(mode=AntMode.TX, rate=rate, buffer_len=100_000,
@@ -188,21 +182,10 @@ def test_fused_fold_kernel_lane_padded(monkeypatch):
                        samples=400_000, freq=freqs, decim=100,
                        pf_average=4,
                        wave_type=[WaveType.DIRECT] * 3, delay=1.0)
-    monkeypatch.setenv("GPU_SDR_TPU_PAD_LANES", "0")
-    fused0 = FusedLoopback(tx, rx, blocks_per_exec=2)
-    assert fused0.path == "fold_kernel"
-    s0 = MemorySink()
-    fused0.run([s0])
-
-    monkeypatch.setenv("GPU_SDR_TPU_PAD_LANES", "1")
-    fused1 = FusedLoopback(tx, rx, blocks_per_exec=2)
-    assert fused1.path == "fold_kernel"
-    assert fused1._chain.out_channels == 128
-    assert fused1._chain.self_ramp, \
-        "identical dummies on both sides must preserve self-ramp"
-    s1 = MemorySink()
-    fused1.run([s1])
-
-    assert s1.data.shape == s0.data.shape, "host slice restores channels"
-    snr = golden.snr_db(s0.data, s1.data)
-    assert snr > 110, f"padded vs unpadded: {snr:.1f} dB"
+    fused = FusedLoopback(tx, rx, blocks_per_exec=2)
+    assert fused.path == "fold_chain"
+    s0, s1 = MemorySink(), MemorySink()
+    fused.run([s0])
+    fused.run([s1])
+    assert s1.data.shape == s0.data.shape == (4000, 3)
+    assert np.array_equal(s0.data, s1.data)

@@ -11,15 +11,15 @@ import threading
 import numpy as np
 import pytest
 
-from gpu_sdr_tpu import golden
-from gpu_sdr_tpu.engine import make_demodulator, run_pipeline
-from gpu_sdr_tpu.engine.sinks import MemorySink
-from gpu_sdr_tpu.engine.sources import ArraySource
-from gpu_sdr_tpu.ops import cplx
-from gpu_sdr_tpu.parallel import make_mesh
-from gpu_sdr_tpu.parallel.host_ingest import PerHostIngest, host_stream_for
-from gpu_sdr_tpu.params import AntennaParams, AntMode, WaveType
-from gpu_sdr_tpu.server import native
+from gpu_sdr import golden
+from gpu_sdr.engine import make_demodulator, run_pipeline
+from gpu_sdr.engine.sinks import MemorySink
+from gpu_sdr.engine.sources import ArraySource
+from gpu_sdr.ops import cplx
+from gpu_sdr.parallel import make_mesh
+from gpu_sdr.parallel.host_ingest import PerHostIngest, host_stream_for
+from gpu_sdr.params import AntennaParams, AntMode, WaveType
+from gpu_sdr.server import native
 
 pytestmark = pytest.mark.skipif(not native.ingest_available(),
                                 reason="native ingest library not built")

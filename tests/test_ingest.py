@@ -1,5 +1,5 @@
 """Host-fed ingest pipeline tests: the double-buffered HostFeed and the
-native socket ingest receiver (the TPU equivalents of the reference's UHD RX
+native socket ingest receiver (the equivalents of the reference's UHD RX
 thread + pinned-pool double buffering, cpp/USRP_hardware_manager.cpp:
 1398-1611 and cpp/USRP_server_link_threads.cpp:604-702)."""
 
@@ -10,12 +10,12 @@ import time
 import numpy as np
 import pytest
 
-from gpu_sdr_tpu.engine import make_demodulator, run_pipeline
-from gpu_sdr_tpu.engine.ingest import HostFeed, SocketIngestSource
-from gpu_sdr_tpu.engine.sinks import MemorySink
-from gpu_sdr_tpu.engine.sources import ArraySource, Source
-from gpu_sdr_tpu.params import AntennaParams, AntMode, WaveType
-from gpu_sdr_tpu.server import native
+from gpu_sdr.engine import make_demodulator, run_pipeline
+from gpu_sdr.engine.ingest import HostFeed, SocketIngestSource
+from gpu_sdr.engine.sinks import MemorySink
+from gpu_sdr.engine.sources import ArraySource, Source
+from gpu_sdr.params import AntennaParams, AntMode, WaveType
+from gpu_sdr.server import native
 
 
 def _rx_params(rate=1_000_000, samples=800_000, buffer_len=100_000):
@@ -201,8 +201,8 @@ def test_ingest_abort_writes_short_flagged_h5(tmp_path, monkeypatch):
     aborted — never silent zero rows."""
     import h5py
 
-    from gpu_sdr_tpu.measure import run_measurement
-    from gpu_sdr_tpu.params import UsrpParams
+    from gpu_sdr.measure import run_measurement
+    from gpu_sdr.params import UsrpParams
 
     monkeypatch.chdir(tmp_path)
     rx = _rx_params()

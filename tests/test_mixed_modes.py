@@ -7,16 +7,16 @@ the rest)."""
 import numpy as np
 import pytest
 
-from gpu_sdr_tpu import golden
-from gpu_sdr_tpu.client import files as Ufiles
-from gpu_sdr_tpu.engine import make_demodulator
-from gpu_sdr_tpu.engine.demodulator import MixedDemodulator
-from gpu_sdr_tpu.engine.pipeline import run_pipeline_mixed
-from gpu_sdr_tpu.engine.sinks import MemorySink
-from gpu_sdr_tpu.engine.sources import ArraySource
-from gpu_sdr_tpu.measure import run_measurement
-from gpu_sdr_tpu.ops import cplx
-from gpu_sdr_tpu.params import AntennaParams, AntMode, UsrpParams, WaveType
+from gpu_sdr import golden
+from gpu_sdr.client import files as Ufiles
+from gpu_sdr.engine import make_demodulator
+from gpu_sdr.engine.demodulator import MixedDemodulator
+from gpu_sdr.engine.pipeline import run_pipeline_mixed
+from gpu_sdr.engine.sinks import MemorySink
+from gpu_sdr.engine.sources import ArraySource
+from gpu_sdr.measure import run_measurement
+from gpu_sdr.ops import cplx
+from gpu_sdr.params import AntennaParams, AntMode, UsrpParams, WaveType
 
 RATE = 1_000_000
 F_TONES = [100_000, -200_000]
@@ -116,9 +116,9 @@ def test_mixed_measurement_h5_layout(tmp_path, monkeypatch):
 
 def test_mixed_on_mesh_matches_single_device():
     """Mixed wave types under a mesh: every group's SHARDED demodulator
-    (time-sharded blocks, ICI halos) consumes the same block inside one
+    (time-sharded blocks, ppermute halos) consumes the same block inside one
     jitted step, and the outputs match the single-device mixed path."""
-    from gpu_sdr_tpu.parallel import make_mesh
+    from gpu_sdr.parallel import make_mesh
     mesh = make_mesh((2, 4), ("time", "channels"))
     rx = _mixed_rx()
     dm = make_demodulator(rx, mesh=mesh)

@@ -1,12 +1,12 @@
 """Multi-process (multi-host) rehearsal: N OS processes, 4 virtual CPU
-devices each, joined by jax.distributed into one slice; the sharded
+devices each, joined by jax.distributed into one cluster; the sharded
 chains run across all of them and every process checks its addressable
 output shards against the float64 oracle (tools/multihost_rehearsal.py:
 fused chain, lock-step dual config-5, all sharded mode families, mixed
 modes, mesh-dispatched replay).
 
 (The reference is strictly single-node — SURVEY.md section 2.4; this is
-the jax.distributed path a real pod-slice deployment uses.)
+the jax.distributed path a real multi-host deployment uses.)
 """
 
 import os
@@ -65,7 +65,7 @@ def test_two_process_sharded_chain_matches_golden():
 
 @pytest.mark.parametrize("mesh", ["4x4", "2x8"])
 def test_four_process_rehearsal(mesh):
-    """4 processes x 4 devices: the 16-device slice in both mesh
+    """4 processes x 4 devices: the 16-device cluster in both mesh
     geometries, all five phases (fused chain golden, lock-step dual
     config-5 alignment, sharded families at the 90 dB bar, mixed modes,
     cross-process replay)."""

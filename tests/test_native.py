@@ -7,7 +7,7 @@ import threading
 import numpy as np
 import pytest
 
-from gpu_sdr_tpu.server import native as native_mod
+from gpu_sdr.server import native as native_mod
 
 pytestmark = pytest.mark.skipif(not native_mod.available(),
                                 reason="native library not built")
@@ -24,8 +24,8 @@ def test_native_streamer_roundtrip():
     client-side decoder, verify framing and payload integrity."""
     import socket
 
-    from gpu_sdr_tpu.engine.sinks import PacketMeta
-    from gpu_sdr_tpu.server import wire
+    from gpu_sdr.engine.sinks import PacketMeta
+    from gpu_sdr.server import wire
 
     srv = native_mod.NativeSyncServer(port=0, slot_bytes=1 << 16,
                                       queue_len=32)
@@ -60,11 +60,11 @@ def test_native_streamer_roundtrip():
 
 def test_native_end_to_end_measurement(tmp_chdir):
     """Full TCP measurement with the native data plane serving packets."""
-    from gpu_sdr_tpu.client import connections as Uconn
-    from gpu_sdr_tpu.client import files as Ufiles
-    from gpu_sdr_tpu.params import (AntennaParams, AntMode, UsrpParams,
-                                    WaveType)
-    from gpu_sdr_tpu.server.main import Server
+    from gpu_sdr.client import connections as Uconn
+    from gpu_sdr.client import files as Ufiles
+    from gpu_sdr.params import (AntennaParams, AntMode, UsrpParams,
+                                WaveType)
+    from gpu_sdr.server.main import Server
 
     srv = Server(async_port=0, data_port=0, host="127.0.0.1",
                  use_native=True)

@@ -5,11 +5,11 @@ analyze_noise.py)."""
 import numpy as np
 import pytest
 
-from gpu_sdr_tpu.client import fitting as Ufit
-from gpu_sdr_tpu.client import files as Ufiles
-from gpu_sdr_tpu.client import noise as Unoise
-from gpu_sdr_tpu.client import vna as Uvna
-from gpu_sdr_tpu.engine.channel import make_resonator_channel
+from gpu_sdr.client import fitting as Ufit
+from gpu_sdr.client import files as Ufiles
+from gpu_sdr.client import noise as Unoise
+from gpu_sdr.client import vna as Uvna
+from gpu_sdr.engine.channel import make_resonator_channel
 
 
 @pytest.fixture
@@ -21,7 +21,7 @@ def tmp_chdir(tmp_path, monkeypatch):
 def test_get_noise_direct_and_psd(tmp_chdir):
     """DIRECT-mode noise acquisition with additive noise: PSD of each
     channel must be flat at the injected noise level."""
-    from gpu_sdr_tpu.engine.channel import ChainChannel, IdealChannel
+    from gpu_sdr.engine.channel import ChainChannel, IdealChannel
     rate = int(1e6)
     tones = [100_000, -150_000]
     chan = ChainChannel([IdealChannel()], noise_rms=1e-3, seed=5)
@@ -71,7 +71,7 @@ def test_full_fitting_workflow(tmp_chdir):
              dict(f0=200_000.0, Qr=25.0, Qe_re=50.0)]
 
     chan = make_resonator_channel(rate, resos, fft_len=1 << 12)
-    from gpu_sdr_tpu.client import delay as Udelay
+    from gpu_sdr.client import delay as Udelay
     Udelay.set_line_delay(rate, 512e-6 * 1e9)   # channel causal shift
     try:
         fn = Uvna.Single_VNA(start_f=-400_000, last_f=400_000,
@@ -133,12 +133,12 @@ def test_nonlinear_model_roundtrip():
 def test_amplitude_trigger_from_vna_file(tmp_chdir):
     """amplitude_trigger(vna=...) loads fit params and calibration from a
     fitted VNA file (the reference's construction path)."""
-    from gpu_sdr_tpu.client.triggers import amplitude_trigger
+    from gpu_sdr.client.triggers import amplitude_trigger
 
     rate = int(1e6)
     resos = [dict(f0=150_000.0, Qr=25.0, Qe_re=50.0)]
     chan = make_resonator_channel(rate, resos, fft_len=1 << 12)
-    from gpu_sdr_tpu.client import delay as Udelay
+    from gpu_sdr.client import delay as Udelay
     Udelay.set_line_delay(rate, 512e-6 * 1e9)
     try:
         fn = Uvna.Single_VNA(start_f=-400_000, last_f=400_000,

@@ -4,7 +4,7 @@ server's H5_file_writer)."""
 import h5py
 import numpy as np
 
-from gpu_sdr_tpu.client import files as Ufiles
+from gpu_sdr.client import files as Ufiles
 
 
 def test_old_mode_read(tmp_path):
@@ -36,16 +36,16 @@ def test_old_mode_read(tmp_path):
 def test_big_file_mode(tmp_path):
     """big_file=True returns the open handle + dataset (caller closes)."""
     import jax
-    from gpu_sdr_tpu.engine import make_demodulator
-    from gpu_sdr_tpu.engine.sources import ArraySource
-    from gpu_sdr_tpu.measure import run_measurement
-    from gpu_sdr_tpu.params import AntennaParams, AntMode, WaveType
+    from gpu_sdr.engine import make_demodulator
+    from gpu_sdr.engine.sources import ArraySource
+    from gpu_sdr.measure import run_measurement
+    from gpu_sdr.params import AntennaParams, AntMode, WaveType
     import os
     os.chdir(tmp_path)
     p = AntennaParams(mode=AntMode.RX, rate=1_000_000, buffer_len=50_000,
                       samples=100_000, decim=100, pf_average=4,
                       freq=[10_000], wave_type=[WaveType.DIRECT])
-    from gpu_sdr_tpu.params import UsrpParams
+    from gpu_sdr.params import UsrpParams
     cmd = UsrpParams(); cmd.A_RX2 = p
     x = np.ones(100_000, dtype=np.complex64)
     fn = run_measurement(cmd, "bigfile", source=ArraySource(x))
@@ -60,8 +60,8 @@ def test_big_file_mode(tmp_path):
 def test_get_trigger_info(tmp_path):
     import os
     os.chdir(tmp_path)
-    from gpu_sdr_tpu.client.triggers import amplitude_trigger
-    from gpu_sdr_tpu.client import noise as Unoise
+    from gpu_sdr.client.triggers import amplitude_trigger
+    from gpu_sdr.client import noise as Unoise
     trig = amplitude_trigger(sample_rate=10_000, threshold=5,
                              channels=[0], accumulation_t=0.5,
                              window_t=0.002)

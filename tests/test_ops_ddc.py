@@ -6,11 +6,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gpu_sdr_tpu import golden
-from gpu_sdr_tpu.ops import cplx
-from gpu_sdr_tpu.ops.ddc import (
+from gpu_sdr import golden
+from gpu_sdr.ops import cplx
+from gpu_sdr.ops.ddc import (
     DirectDDCConfig, ddc_carrier_init, ddc_carrier_step, direct_ddc_fir)
-from gpu_sdr_tpu.ops.fir import fir_init_state, fir_taps_direct, streaming_fir
+from gpu_sdr.ops.fir import fir_init_state, fir_taps_direct, streaming_fir
 
 RNG = np.random.default_rng(1234)
 

@@ -6,14 +6,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gpu_sdr_tpu import golden
-from gpu_sdr_tpu.ops import cplx
-from gpu_sdr_tpu.ops.chirp import ChirpConfig, chirp_block, chirp_demod_block
-from gpu_sdr_tpu.ops.lockin import lockin_decimate, lockin_profile
-from gpu_sdr_tpu.ops.pfb import (
+from gpu_sdr import golden
+from gpu_sdr.ops import cplx
+from gpu_sdr.ops.chirp import ChirpConfig, chirp_block, chirp_demod_block
+from gpu_sdr.ops.lockin import lockin_decimate, lockin_profile
+from gpu_sdr.ops.pfb import (
     PFBConfig, average_frames, pfb_frames, pfb_spare_init, select_tones,
     tone_bins)
-from gpu_sdr_tpu.ops.tonegen import ToneCombConfig, tone_comb_block
+from gpu_sdr.ops.tonegen import ToneCombConfig, tone_comb_block
 
 RNG = np.random.default_rng(99)
 
@@ -198,7 +198,7 @@ def test_tone_comb_matches_golden():
 
 
 def test_tone_comb_matches_wavetable():
-    from gpu_sdr_tpu.ops.tonegen import tone_comb_wavetable
+    from gpu_sdr.ops.tonegen import tone_comb_wavetable
     rate = 4096
     freqs, ampls = (100, -300), (1.0, 0.25)
     wt = tone_comb_wavetable(freqs, ampls, rate)
@@ -218,8 +218,8 @@ def test_lockin_matches_golden():
 
 
 def test_comb_period_and_wavetable():
-    from gpu_sdr_tpu.ops.tonegen import (comb_period,
-                                         tone_comb_wavetable_block)
+    from gpu_sdr.ops.tonegen import (comb_period,
+                                     tone_comb_wavetable_block)
     rate = 1_024_000
     # bin-aligned tones (rate/nfft = 16000): tiny period
     freqs = (5 * 16_000, -10 * 16_000)
@@ -236,8 +236,8 @@ def test_comb_period_and_wavetable():
 def test_generator_wavetable_path_matches_matmul_path():
     """The constant-wavetable generator and the matmul generator must emit
     identical streams for bin-aligned tones."""
-    from gpu_sdr_tpu.engine import make_generator
-    from gpu_sdr_tpu.params import AntennaParams, AntMode, WaveType
+    from gpu_sdr.engine import make_generator
+    from gpu_sdr.params import AntennaParams, AntMode, WaveType
     rate = 1_024_000
     freqs = [16_000 * 3, -16_000 * 7]
     p = AntennaParams(mode=AntMode.TX, rate=rate, buffer_len=64_000,

@@ -6,10 +6,10 @@ import jax
 import numpy as np
 import pytest
 
-from gpu_sdr_tpu import golden
-from gpu_sdr_tpu.ops import cplx
-from gpu_sdr_tpu.ops.ddc import DirectDDCConfig
-from gpu_sdr_tpu.parallel import ShardedDDC, make_mesh
+from gpu_sdr import golden
+from gpu_sdr.ops import cplx
+from gpu_sdr.ops.ddc import DirectDDCConfig
+from gpu_sdr.parallel import ShardedDDC, make_mesh
 
 RNG = np.random.default_rng(42)
 
@@ -50,8 +50,8 @@ def test_sharded_ddc_matches_golden(mesh_shape, axes):
 
 def test_sharded_matches_single_device():
     """Sharded and unsharded paths must agree to float tolerance."""
-    from gpu_sdr_tpu.ops.ddc import (ddc_carrier_init, ddc_carrier_step,
-                                     direct_ddc_fir)
+    from gpu_sdr.ops.ddc import (ddc_carrier_init, ddc_carrier_step,
+                                 direct_ddc_fir)
     rate, decim, pfa = 500_000, 5, 3
     freqs = tuple(int(f) for f in np.linspace(-200_000, 200_000, 4))
     L = 50_000
@@ -76,19 +76,18 @@ def test_sharded_matches_single_device():
     assert golden.snr_db(b, a) > 110.0
 
 
-def test_sharded_ddc_pallas_path_matches_golden(monkeypatch):
-    """Force the per-shard fused Pallas DDC (interpret mode on CPU) and
-    check golden parity incl. ppermute halos and cross-block carry."""
-    monkeypatch.setenv("GPU_SDR_TPU_PALLAS", "1")
-    rate, decim, pfa = 1_000_000, 10, 4
-    freqs = tuple(int(f) for f in np.linspace(-400_000, 400_000, 8))
+def test_sharded_ddc_cross_block_carry_matches_golden():
+    """Five blocks through a (4, 2) mesh with an off-grid tone set:
+    ppermute halos and the cross-block carry hold golden parity."""
+    rate, decim, pfa = 1_000_000, 20, 4
+    freqs = (12_345, -67_891, 300_001, -299_999)
     L = 80_000
     cfg = DirectDDCConfig(rate=rate, decim=decim, pf_average=pfa,
-                          freqs=freqs, phases=(0,) * 8)
-    mesh = make_mesh((2, 4), ("time", "channels"))
+                          freqs=freqs, phases=(0,) * 4)
+    mesh = make_mesh((4, 2), ("time", "channels"))
     sd = ShardedDDC(cfg, mesh, L)
     blocks = [(RNG.standard_normal(L) + 1j * RNG.standard_normal(L))
-              .astype(np.complex64) for _ in range(3)]
+              .astype(np.complex64) for _ in range(5)]
     state = sd.init_state()
     outs = []
     for b in blocks:
@@ -100,11 +99,10 @@ def test_sharded_ddc_pallas_path_matches_golden(monkeypatch):
     assert snr > 90.0, f"SNR {snr:.1f} dB"
 
 
-def test_sharded_ddc_pallas_long_fir_falls_back(monkeypatch):
-    """pf_average > _HALO_PAD+1 can't tile in the kernel: the sharded
-    fused gate must fall back to the XLA path, not crash."""
-    monkeypatch.setenv("GPU_SDR_TPU_PALLAS", "1")
-    rate, decim, pfa = 1_000_000, 10, 10     # lead = 9 > _HALO_PAD = 8
+def test_sharded_ddc_long_fir_matches_golden():
+    """A long FIR (pf_average 10: a 9-row halo per time shard) keeps
+    golden parity across shards and blocks."""
+    rate, decim, pfa = 1_000_000, 10, 10
     freqs = tuple(int(f) for f in np.linspace(-400_000, 400_000, 8))
     L = 80_000
     cfg = DirectDDCConfig(rate=rate, decim=decim, pf_average=pfa,

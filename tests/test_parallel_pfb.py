@@ -5,11 +5,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gpu_sdr_tpu import golden
-from gpu_sdr_tpu.ops import cplx
-from gpu_sdr_tpu.ops.pfb import PFBConfig
-from gpu_sdr_tpu.parallel import make_mesh
-from gpu_sdr_tpu.parallel.sharded_pfb import ShardedPFB
+from gpu_sdr import golden
+from gpu_sdr.ops import cplx
+from gpu_sdr.ops.pfb import PFBConfig
+from gpu_sdr.parallel import make_mesh
+from gpu_sdr.parallel.sharded_pfb import ShardedPFB
 
 RNG = np.random.default_rng(5)
 
@@ -59,10 +59,9 @@ def test_sharded_pfb_tone_select_gather():
     assert mags[:, 0].mean() > 1e3 * mags[:, 1].mean()
 
 
-def test_sharded_pfb_pallas_presum_matches_golden(monkeypatch):
-    """Force the per-shard Pallas pre-sum (interpret on CPU) and check
-    golden parity incl. ppermute halo and cross-block carry."""
-    monkeypatch.setenv("GPU_SDR_TPU_PALLAS", "1")
+def test_sharded_pfb_cross_block_carry_matches_golden():
+    """Three blocks through a (2, 4) mesh: golden parity incl. the
+    ppermute halo and the cross-block carry."""
     nfft, avg, rate = 64, 4, 64_000
     L = nfft * 80
     cfg = PFBConfig(nfft=nfft, avg=avg, rate=rate)

@@ -5,7 +5,7 @@ import json
 
 import pytest
 
-from gpu_sdr_tpu.params import (
+from gpu_sdr.params import (
     AntennaParams, AntMode, DEFAULT_BUFFER_LEN, ParamError, UsrpParams,
     WaveType, chirp_steps_and_length, expected_samples_per_channel,
 )

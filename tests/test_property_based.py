@@ -4,8 +4,8 @@ round-trip for arbitrary valid parameter values."""
 import numpy as np
 from hypothesis import given, settings, strategies as st
 
-from gpu_sdr_tpu.params import AntennaParams, AntMode, UsrpParams, WaveType
-from gpu_sdr_tpu.server import wire
+from gpu_sdr.params import AntennaParams, AntMode, UsrpParams, WaveType
+from gpu_sdr.server import wire
 
 freqs_st = st.lists(st.integers(-100_000_000, 100_000_000), min_size=1,
                     max_size=8)

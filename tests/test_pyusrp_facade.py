@@ -5,7 +5,7 @@ workflows port by changing only their import line."""
 import numpy as np
 import pytest
 
-import gpu_sdr_tpu.pyusrp as u
+import gpu_sdr.pyusrp as u
 
 # Complete public-name inventory of the reference pyUSRP package
 # (grep '^def |^class ' over pyUSRP/USRP_*.py).

@@ -1,7 +1,7 @@
 """The pyusrp facade driven by the REFERENCE workflows' argument flow.
 
 Reproduces, call for call, what the reference's measurement + analysis
-scripts do against `import pyUSRP as u` — here `import gpu_sdr_tpu.pyusrp
+scripts do against `import pyUSRP as u` — here `import gpu_sdr.pyusrp
 as u` is the ONLY changed line, proving the drop-in claim:
 
   * scripts/get_VNA.py:14-42  — LINE_DELAY probe -> measure_line_delay ->
@@ -22,8 +22,8 @@ server in test_facade_connection_shims.
 import numpy as np
 import pytest
 
-import gpu_sdr_tpu.pyusrp as u
-from gpu_sdr_tpu.engine.channel import make_resonator_channel
+import gpu_sdr.pyusrp as u
+from gpu_sdr.engine.channel import make_resonator_channel
 
 RATE = 1_000_000
 RF = 10_000_000
@@ -142,7 +142,7 @@ def test_facade_connection_shims():
     server: exercised or dead — none silently padded."""
     import socket
 
-    from gpu_sdr_tpu.server.main import Server
+    from gpu_sdr.server.main import Server
 
     srv = Server(async_port=0, data_port=0, host="127.0.0.1")
     srv.start()

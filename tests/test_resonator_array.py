@@ -1,27 +1,25 @@
-"""Closed-loop science at reference scale: a 50-resonator array
-(VERDICT r4 #2).
+"""Closed-loop science at reference scale: a 50-resonator array.
 
 The reference exists for frequency-multiplexed MKID arrays: its fitter is
 an iterative multi-peak machine (pyUSRP/USRP_fitting.py:380-586
 initialize_peaks) and its stress config loads 1000 channels
-(scripts/network_test.py).  Every closed-loop proof before round 5 used 2
-resonators; this drives the full workflow on a 50-resonator simulated
-array — wide VNA -> extimate_peak_number -> initialize_peaks -> vna_fit
--> get_tones -> multi-tone DIRECT noise readout at the fitted tones —
-and asserts peak-count recovery, per-resonator f0/Qr error statistics,
-and the noise PSDs at the fitted tones.  tools/hw_array_loop.py runs the
-same loop once on the real chip (logs/array_onchip.log).
+(scripts/network_test.py).  This drives the full workflow on a
+50-resonator simulated array — wide VNA -> extimate_peak_number ->
+initialize_peaks -> vna_fit -> get_tones -> multi-tone DIRECT noise
+readout at the fitted tones — and asserts peak-count recovery,
+per-resonator f0/Qr error statistics, and the noise PSDs at the fitted
+tones.
 """
 
 import numpy as np
 import pytest
 
-from gpu_sdr_tpu.client import delay as Udelay
-from gpu_sdr_tpu.client import files as Ufiles
-from gpu_sdr_tpu.client import fitting as Ufit
-from gpu_sdr_tpu.client import noise as Unoise
-from gpu_sdr_tpu.client import vna as Uvna
-from gpu_sdr_tpu.engine.channel import make_resonator_channel
+from gpu_sdr.client import delay as Udelay
+from gpu_sdr.client import files as Ufiles
+from gpu_sdr.client import fitting as Ufit
+from gpu_sdr.client import noise as Unoise
+from gpu_sdr.client import vna as Uvna
+from gpu_sdr.engine.channel import make_resonator_channel
 
 N_RESO = 50
 RATE = int(4e6)

@@ -4,7 +4,7 @@ reference's full deployment stack (SURVEY sections 3.1-3.5):
   [producer process]  tools/science_producer.py — synthesizes the VNA
                       chirp, filters it through two simulated resonators,
                       streams raw IQ over TCP into the server's ingest
-  [server process]    gpu_sdr_tpu.server.main --ingest: JSON command ->
+  [server process]    gpu_sdr.server.main --ingest: JSON command ->
                       ack announcing the ingest port -> CHIRP demod ->
                       data plane TCP -> EOM
   [client = this test] Connection + Packets_to_file -> reference-layout
@@ -24,7 +24,7 @@ import time
 import numpy as np
 import pytest
 
-from gpu_sdr_tpu.server import native
+from gpu_sdr.server import native
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PRODUCER = os.path.join(REPO, "tools", "science_producer.py")
@@ -40,13 +40,13 @@ RESOS = [dict(f0=-150_000.0, Qr=30.0, Qe_re=60.0),
 def _spawn_server():
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     code = ("import jax; jax.config.update('jax_platforms', 'cpu'); "
-            "from gpu_sdr_tpu.server.main import main; import sys; "
+            "from gpu_sdr.server.main import main; import sys; "
             "sys.exit(main(['--async_port', '0', '--data_port', '0', "
             "'--ingest', '0', '--one_shot']))")
     proc = subprocess.Popen([sys.executable, "-c", code], cwd=REPO,
                             env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    # parse "gpu_sdr_tpu server ready: async port A, data port D"
+    # parse "gpu_sdr server ready: async port A, data port D"
     deadline = time.monotonic() + 120
     line = ""
     while time.monotonic() < deadline:
@@ -63,11 +63,11 @@ def _spawn_server():
 
 def test_science_loop_three_processes(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    from gpu_sdr_tpu.client import connections as Uconn
-    from gpu_sdr_tpu.client import delay as Udelay
-    from gpu_sdr_tpu.client import files as Ufiles
-    from gpu_sdr_tpu.client import fitting as Ufit
-    from gpu_sdr_tpu.client import vna as Uvna
+    from gpu_sdr.client import connections as Uconn
+    from gpu_sdr.client import delay as Udelay
+    from gpu_sdr.client import files as Ufiles
+    from gpu_sdr.client import fitting as Ufit
+    from gpu_sdr.client import vna as Uvna
 
     server = producer = None
     conn = None

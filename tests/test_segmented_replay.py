@@ -1,7 +1,7 @@
 """Chunked HBM-refill replay (engine/replay.SegmentedDeviceReplay):
 recordings larger than the device budget keep the device-resident path
 via double-buffered segment uploads, bit-matching the host-fed pipeline
-across segment boundaries (VERDICT r3 #6).
+across segment boundaries.
 
 Reference analog: unbounded-duration streaming — the RX thread refills
 1 Msample buffers forever (cpp/USRP_hardware_manager.cpp:1398-1611).
@@ -10,13 +10,13 @@ Reference analog: unbounded-duration streaming — the RX thread refills
 import numpy as np
 import pytest
 
-from gpu_sdr_tpu.engine import make_demodulator, run_pipeline
-from gpu_sdr_tpu.engine.replay import (SegmentedDeviceReplay,
-                                       can_device_replay,
-                                       can_segmented_replay)
-from gpu_sdr_tpu.engine.sinks import MemorySink
-from gpu_sdr_tpu.engine.sources import ArraySource
-from gpu_sdr_tpu.params import AntennaParams, AntMode, WaveType
+from gpu_sdr.engine import make_demodulator, run_pipeline
+from gpu_sdr.engine.replay import (SegmentedDeviceReplay,
+                                   can_device_replay,
+                                   can_segmented_replay)
+from gpu_sdr.engine.sinks import MemorySink
+from gpu_sdr.engine.sources import ArraySource
+from gpu_sdr.params import AntennaParams, AntMode, WaveType
 
 RNG = np.random.default_rng(7)
 BLK = 50_000          # the planner's block for this antenna config
@@ -95,18 +95,18 @@ def test_state_carries_across_segments():
 def test_dispatch_rule(monkeypatch, tmp_path):
     """run_measurement routes oversized recordings onto the segmented
     path (and small ones still onto DeviceReplay)."""
-    from gpu_sdr_tpu import measure as measure_mod
-    from gpu_sdr_tpu.engine import replay as replay_mod
-    from gpu_sdr_tpu.measure import run_measurement
-    from gpu_sdr_tpu.params import UsrpParams
+    from gpu_sdr import measure as measure_mod
+    from gpu_sdr.engine import replay as replay_mod
+    from gpu_sdr.measure import run_measurement
+    from gpu_sdr.params import UsrpParams
 
     monkeypatch.chdir(tmp_path)
     rec = _rec(4 * BLK)
     src = ArraySource(rec)
 
     # budget below the recording size -> segmented
-    monkeypatch.setattr(replay_mod, "DEVICE_REPLAY_MAX_BYTES",
-                        2 * BLK * 8)
+    monkeypatch.setattr(replay_mod, "device_replay_max_bytes",
+                        lambda: 2 * BLK * 8)
     assert not can_device_replay(src)
     assert can_segmented_replay(src)
 

@@ -1,5 +1,5 @@
 """End-to-end test of the real server CLI daemon: spawn
-`python -m gpu_sdr_tpu.server.main` as a subprocess, connect over TCP, run
+`python -m gpu_sdr.server.main` as a subprocess, connect over TCP, run
 a measurement, and read the streamed results."""
 
 import os
@@ -11,9 +11,9 @@ import time
 import numpy as np
 import pytest
 
-from gpu_sdr_tpu.client import connections as Uconn
-from gpu_sdr_tpu.client import files as Ufiles
-from gpu_sdr_tpu.params import AntennaParams, AntMode, UsrpParams, WaveType
+from gpu_sdr.client import connections as Uconn
+from gpu_sdr.client import files as Ufiles
+from gpu_sdr.params import AntennaParams, AntMode, UsrpParams, WaveType
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENV = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO)
@@ -23,7 +23,7 @@ def test_server_cli_daemon(tmp_path):
     proc = subprocess.Popen(
         [sys.executable, "-c",
          "import jax; jax.config.update('jax_platforms','cpu');"
-         "from gpu_sdr_tpu.server.main import main;"
+         "from gpu_sdr.server.main import main;"
          "main(['--one_shot', '--async_port', '0', '--data_port', '0'])"],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         env=ENV, cwd=tmp_path)
@@ -64,7 +64,7 @@ def test_server_cli_daemon(tmp_path):
 
 
 def test_deriv_trigger_passes_glitchy_data():
-    from gpu_sdr_tpu.client.triggers import deriv_test
+    from gpu_sdr.client.triggers import deriv_test
     trig = deriv_test(threshold=1.1)
     n_chan, L = 2, 600
     rng = np.random.default_rng(0)

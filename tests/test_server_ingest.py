@@ -12,11 +12,11 @@ import time
 import numpy as np
 import pytest
 
-from gpu_sdr_tpu.client import connections as Uconn
-from gpu_sdr_tpu.client import files as Ufiles
-from gpu_sdr_tpu.params import AntennaParams, AntMode, UsrpParams, WaveType
-from gpu_sdr_tpu.server import native
-from gpu_sdr_tpu.server.main import Server
+from gpu_sdr.client import connections as Uconn
+from gpu_sdr.client import files as Ufiles
+from gpu_sdr.params import AntennaParams, AntMode, UsrpParams, WaveType
+from gpu_sdr.server import native
+from gpu_sdr.server.main import Server
 
 pytestmark = pytest.mark.skipif(not native.ingest_available(),
                                 reason="native ingest library not built")

@@ -7,10 +7,10 @@ import threading
 import numpy as np
 import pytest
 
-from gpu_sdr_tpu.client import connections as Uconn
-from gpu_sdr_tpu.client import files as Ufiles
-from gpu_sdr_tpu.params import AntennaParams, AntMode, UsrpParams, WaveType
-from gpu_sdr_tpu.server.main import Server
+from gpu_sdr.client import connections as Uconn
+from gpu_sdr.client import files as Ufiles
+from gpu_sdr.params import AntennaParams, AntMode, UsrpParams, WaveType
+from gpu_sdr.server.main import Server
 
 
 @pytest.fixture
@@ -98,7 +98,7 @@ def test_client_reconnect(tmp_chdir, use_native):
     watchdog, cpp/USRP_server_network.cpp:3-4,135-161) — on both the
     Python and the native C++ data plane."""
     if use_native:
-        from gpu_sdr_tpu.server import native as native_mod
+        from gpu_sdr.server import native as native_mod
         if not native_mod.available():
             pytest.skip("native streamer not built")
     srv = Server(async_port=0, data_port=0, host="127.0.0.1",
@@ -173,9 +173,9 @@ def test_server_dual_uses_lockstep_path(tmp_chdir, monkeypatch):
     lock-step DualFused program, not sequential frontends — TXRX must
     hand channel=None through to run_measurement (the fast paths all
     gate on `channel is None`)."""
-    import gpu_sdr_tpu.engine.dual as dual_mod
-    from gpu_sdr_tpu.params import ServerSettings
-    from gpu_sdr_tpu.server.txrx import TXRX
+    import gpu_sdr.engine.dual as dual_mod
+    from gpu_sdr.params import ServerSettings
+    from gpu_sdr.server.txrx import TXRX
 
     made = []
     orig = dual_mod.DualFused.__init__

@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from gpu_sdr_tpu import golden
-from gpu_sdr_tpu.engine import make_demodulator
-from gpu_sdr_tpu.ops import cplx
-from gpu_sdr_tpu.parallel import make_mesh
-from gpu_sdr_tpu.params import AntennaParams, AntMode, WaveType
+from gpu_sdr import golden
+from gpu_sdr.engine import make_demodulator
+from gpu_sdr.ops import cplx
+from gpu_sdr.parallel import make_mesh
+from gpu_sdr.params import AntennaParams, AntMode, WaveType
 
 RNG = np.random.default_rng(53)
 
@@ -47,7 +47,7 @@ def test_sharded_chirp_matches_single(mesh_shape):
 
 def test_sharded_chirp_flat_loopback():
     """Ideal loopback through the sharded path gives S21 = 1 exactly."""
-    from gpu_sdr_tpu.engine import make_generator
+    from gpu_sdr.engine import make_generator
     rate = 1_000_000
     p = dict(rate=rate, buffer_len=100_000, samples=100_000,
              freq=[-300_000], chirp_f=[300_000], chirp_t=[0.1],

@@ -3,11 +3,11 @@ single-device demodulator."""
 
 import numpy as np
 
-from gpu_sdr_tpu.engine import make_demodulator
-from gpu_sdr_tpu.ops import cplx
-from gpu_sdr_tpu.parallel import make_mesh
-from gpu_sdr_tpu.params import AntennaParams, AntMode, WaveType
-from gpu_sdr_tpu import golden
+from gpu_sdr.engine import make_demodulator
+from gpu_sdr.ops import cplx
+from gpu_sdr.parallel import make_mesh
+from gpu_sdr.params import AntennaParams, AntMode, WaveType
+from gpu_sdr import golden
 
 
 def test_sharded_noise_decim_matches_single():
@@ -48,9 +48,9 @@ def test_sharded_tones_block_not_inflated():
     """The sharded TONES plan must not square the decim factor into the
     block constraint (regression: nfft=1000, decim=100 under a T=2 mesh
     demanded 20M-sample blocks instead of ~buffer_len)."""
-    from gpu_sdr_tpu.engine import make_demodulator
-    from gpu_sdr_tpu.parallel import make_mesh
-    from gpu_sdr_tpu.params import AntennaParams, AntMode, WaveType
+    from gpu_sdr.engine import make_demodulator
+    from gpu_sdr.parallel import make_mesh
+    from gpu_sdr.params import AntennaParams, AntMode, WaveType
     mesh = make_mesh((2, 4), ("time", "channels"))
     rate = 100_000_000
     bin_hz = rate // 1000

@@ -7,16 +7,16 @@ dispatch."""
 import numpy as np
 import pytest
 
-from gpu_sdr_tpu import golden
-from gpu_sdr_tpu.client import files as Ufiles
-from gpu_sdr_tpu.engine import make_demodulator, run_pipeline
-from gpu_sdr_tpu.engine.replay import DeviceReplay
-from gpu_sdr_tpu.engine.sinks import MemorySink
-from gpu_sdr_tpu.engine.sources import ArraySource
-from gpu_sdr_tpu.measure import run_measurement
-from gpu_sdr_tpu.parallel import make_mesh
-from gpu_sdr_tpu.parallel.sharded_replay import ShardedDeviceReplay
-from gpu_sdr_tpu.params import AntennaParams, AntMode, UsrpParams, WaveType
+from gpu_sdr import golden
+from gpu_sdr.client import files as Ufiles
+from gpu_sdr.engine import make_demodulator, run_pipeline
+from gpu_sdr.engine.replay import DeviceReplay
+from gpu_sdr.engine.sinks import MemorySink
+from gpu_sdr.engine.sources import ArraySource
+from gpu_sdr.measure import run_measurement
+from gpu_sdr.parallel import make_mesh
+from gpu_sdr.parallel.sharded_replay import ShardedDeviceReplay
+from gpu_sdr.params import AntennaParams, AntMode, UsrpParams, WaveType
 
 RNG = np.random.default_rng(77)
 
@@ -150,10 +150,10 @@ def test_sharded_segmented_matches_host(monkeypatch):
     """Recordings larger than the HBM budget under a mesh take the
     sharded segment-refill path and match the host-fed pipeline across
     >= 3 segment boundaries."""
-    from gpu_sdr_tpu import measure as measure_mod
-    from gpu_sdr_tpu.engine import replay as replay_mod
-    from gpu_sdr_tpu.engine.dispatch import plan_dispatch
-    from gpu_sdr_tpu.parallel.sharded_replay import ShardedSegmentedReplay
+    from gpu_sdr import measure as measure_mod
+    from gpu_sdr.engine import replay as replay_mod
+    from gpu_sdr.engine.dispatch import plan_dispatch
+    from gpu_sdr.parallel.sharded_replay import ShardedSegmentedReplay
 
     rate = 1_000_000
     freqs = [100_000, -200_000]
@@ -175,8 +175,8 @@ def test_sharded_segmented_matches_host(monkeypatch):
     assert _snr(ref, sink.data) > 80
 
     # dispatch: run_measurement routes here when the budget is exceeded
-    monkeypatch.setattr(replay_mod, "DEVICE_REPLAY_MAX_BYTES",
-                        2 * blk * 8)
+    monkeypatch.setattr(replay_mod, "device_replay_max_bytes",
+                        lambda: 2 * blk * 8)
     cmd = UsrpParams()
     cmd.A_RX2 = rx
     src = ArraySource(rec)
@@ -192,12 +192,10 @@ def test_sharded_segmented_matches_host(monkeypatch):
 
 
 @pytest.mark.parametrize("wave", [WaveType.TONES, WaveType.NOISE])
-def test_sharded_channelizer_replay_matches_host_fed(monkeypatch, wave):
-    """The round-5 SHARDED fused channelizer replay (channelizer_at per
-    time shard, cross-shard halos staged at upload, zero collectives)
-    must match the host-fed pipeline for selected-tone AND full-spectrum
-    replay, across blocks and the loop seam."""
-    monkeypatch.setenv("GPU_SDR_TPU_PALLAS", "1")
+def test_sharded_channelizer_replay_matches_host_fed(wave):
+    """Sharded TONES/NOISE replay on a time-only mesh (sharded scan,
+    ppermute halo ring) matches the host-fed pipeline for selected-tone
+    AND full-spectrum replay, across blocks and the loop seam."""
     rate, nfft = 1_000_000, 1000
     bin_hz = rate // nfft
     rx = AntennaParams(mode=AntMode.RX, rate=rate, buffer_len=128_000,
@@ -209,7 +207,7 @@ def test_sharded_channelizer_replay_matches_host_fed(monkeypatch, wave):
            1j * RNG.standard_normal(128_000)).astype(np.complex64)
     mesh = make_mesh((8, 1), ("time", "channels"))
     sr = ShardedDeviceReplay(rx, rec, mesh, blocks_per_exec=2, loop=True)
-    assert sr.path == "channelizer_at", sr.path
+    assert sr.path == "scan", sr.path
     s_k = MemorySink()
     sr.run([s_k])
 
@@ -227,15 +225,12 @@ def test_sharded_channelizer_replay_matches_host_fed(monkeypatch, wave):
     n = min(len(s_k.data), len(s_h.data))
     assert n > 0
     snr = golden.snr_db(s_h.data[:n], s_k.data[:n])
-    assert snr > 85, f"sharded channelizer_at vs host-fed ({wave}): " \
-        f"{snr:.1f} dB"
+    assert snr > 85, f"sharded replay vs host-fed ({wave}): {snr:.1f} dB"
 
 
-def test_sharded_channelizer_replay_decimated(monkeypatch):
-    """Frame averaging (decim) rides the sharded fused replay when it
-    divides the per-shard frame count; output matches the single-chip
-    channelizer_at path."""
-    monkeypatch.setenv("GPU_SDR_TPU_PALLAS", "1")
+def test_sharded_channelizer_replay_decimated():
+    """Frame averaging (decim) under the sharded replay matches the
+    single-chip resident scan and the oracle."""
     rate, nfft = 1_000_000, 1000
     bin_hz = rate // nfft
     rx = AntennaParams(mode=AntMode.RX, rate=rate, buffer_len=128_000,
@@ -246,23 +241,24 @@ def test_sharded_channelizer_replay_decimated(monkeypatch):
            1j * RNG.standard_normal(256_000)).astype(np.complex64)
     mesh = make_mesh((8, 1), ("time", "channels"))
     sr = ShardedDeviceReplay(rx, rec, mesh, blocks_per_exec=2, loop=True)
-    assert sr.path == "channelizer_at", sr.path
+    assert sr.path == "scan", sr.path
     s_k = MemorySink()
     sr.run([s_k])
 
     dr = DeviceReplay(rx, rec, blocks_per_exec=2, loop=True)
-    assert dr.path == "channelizer_at", dr.path
+    assert dr.path == "scan", dr.path
     s_1 = MemorySink()
     dr.run([s_1])
     assert s_k.data.shape == s_1.data.shape
     snr = golden.snr_db(s_1.data, s_k.data)
     assert snr > 100, f"sharded vs single-chip decimated: {snr:.1f} dB"
+    ref = golden.expected_stream(rx, np.resize(rec, 512_000))
+    assert golden.snr_db(ref, s_k.data) > 85
 
 
-def test_sharded_channelizer_replay_gate_falls_back(monkeypatch):
-    """A channel-sharded mesh (Kc > 1) or a non-looped recording must
-    fall back to the generic sharded scan path."""
-    monkeypatch.setenv("GPU_SDR_TPU_PALLAS", "1")
+def test_sharded_channelizer_replay_gate_falls_back():
+    """A channel-sharded mesh (Kc > 1) and a non-looped recording both
+    run the sharded scan."""
     rate, nfft = 1_000_000, 1000
     bin_hz = rate // nfft
     rx = AntennaParams(mode=AntMode.RX, rate=rate, buffer_len=128_000,
@@ -281,12 +277,10 @@ def test_sharded_channelizer_replay_gate_falls_back(monkeypatch):
     assert sr2.path == "scan", sr2.path
 
 
-def test_sharded_replay_kernel_matches_single_chip(monkeypatch):
-    """The round-5 SHARDED row-major replay kernel (per-shard in-place
-    DDC+FIR, staged cross-shard FIR history, zero collectives) must
-    match the single-chip replay-kernel path across blocks and the loop
-    seam."""
-    monkeypatch.setenv("GPU_SDR_TPU_PALLAS", "1")
+def test_sharded_replay_kernel_matches_single_chip():
+    """Looped DIRECT replay on a time-only mesh (sharded scan, ppermute
+    FIR history) matches the single-chip resident scan and the oracle
+    across blocks and the loop seam."""
     rate = 1_000_000
     freqs = [100_000, -250_000]
     L = 128_000
@@ -297,24 +291,23 @@ def test_sharded_replay_kernel_matches_single_chip(monkeypatch):
            1j * RNG.standard_normal(2 * L)).astype(np.complex64)
     mesh = make_mesh((8, 1), ("time", "channels"))
     sr = ShardedDeviceReplay(rx, rec, mesh, blocks_per_exec=2, loop=True)
-    assert sr.path == "replay_kernel", sr.path
+    assert sr.path == "scan", sr.path
     s_k = MemorySink()
     sr.run([s_k])
     dr = DeviceReplay(rx, rec, blocks_per_exec=2, loop=True)
-    assert dr.path.startswith("replay_kernel"), dr.path
+    assert dr.path == "scan", dr.path
     s_1 = MemorySink()
     dr.run([s_1])
     assert s_k.data.shape == s_1.data.shape
     snr = golden.snr_db(s_1.data, s_k.data)
-    assert snr > 110, f"sharded vs single-chip replay kernel: {snr:.1f} dB"
+    assert snr > 110, f"sharded vs single-chip replay: {snr:.1f} dB"
+    ref = golden.expected_stream(rx, np.resize(rec, 4 * L))
+    assert golden.snr_db(ref, s_k.data) > 90
 
 
-def test_sharded_replay_kernel_many_channels_lane_padded(monkeypatch):
-    """The sharded replay kernel lane-pads 9-127 channel tone lists
-    like the single-chip form (pad_rx_freqs); dead lanes are sliced
-    host-side and the output matches the host-fed pipeline."""
-    monkeypatch.setenv("GPU_SDR_TPU_PALLAS", "1")
-    monkeypatch.setenv("GPU_SDR_TPU_PAD_LANES", "1")
+def test_sharded_replay_kernel_many_channels_lane_padded():
+    """A 12-channel looped DIRECT recording on a (4, 1) mesh keeps its
+    12 channels and matches the host-fed pipeline."""
     rate = 1_000_000
     freqs = [int(f) for f in np.linspace(-400_000, 400_000, 12)]
     L = 128_000
@@ -325,10 +318,10 @@ def test_sharded_replay_kernel_many_channels_lane_padded(monkeypatch):
            1j * RNG.standard_normal(2 * L)).astype(np.complex64)
     mesh = make_mesh((4, 1), ("time", "channels"))
     sr = ShardedDeviceReplay(rx, rec, mesh, blocks_per_exec=2, loop=True)
-    assert sr.path == "replay_kernel", sr.path
+    assert sr.path == "scan", sr.path
     s_k = MemorySink()
     sr.run([s_k])
-    assert s_k.data.shape[1] == 12          # dead lanes sliced off
+    assert s_k.data.shape[1] == 12
 
     class _Loop:
         def blocks(self, block_len, n_blocks):
@@ -342,4 +335,4 @@ def test_sharded_replay_kernel_many_channels_lane_padded(monkeypatch):
     run_pipeline(demod, _Loop(), [s_h])
     n = min(len(s_k.data), len(s_h.data))
     snr = golden.snr_db(s_h.data[:n], s_k.data[:n])
-    assert snr > 85, f"sharded padded replay vs host-fed: {snr:.1f} dB"
+    assert snr > 85, f"sharded replay vs host-fed: {snr:.1f} dB"

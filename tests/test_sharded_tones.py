@@ -4,11 +4,11 @@ demodulator, with and without frame-averaging decimation."""
 import numpy as np
 import pytest
 
-from gpu_sdr_tpu import golden
-from gpu_sdr_tpu.engine import make_demodulator
-from gpu_sdr_tpu.ops import cplx
-from gpu_sdr_tpu.parallel import make_mesh
-from gpu_sdr_tpu.params import AntennaParams, AntMode, WaveType
+from gpu_sdr import golden
+from gpu_sdr.engine import make_demodulator
+from gpu_sdr.ops import cplx
+from gpu_sdr.parallel import make_mesh
+from gpu_sdr.params import AntennaParams, AntMode, WaveType
 
 RNG = np.random.default_rng(47)
 

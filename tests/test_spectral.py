@@ -4,9 +4,9 @@ import numpy as np
 import pytest
 from scipy import signal
 
-from gpu_sdr_tpu.client import files as Ufiles
-from gpu_sdr_tpu.client import noise as Unoise
-from gpu_sdr_tpu.ops.spectral import batched_welch
+from gpu_sdr.client import files as Ufiles
+from gpu_sdr.client import noise as Unoise
+from gpu_sdr.ops.spectral import batched_welch
 
 RNG = np.random.default_rng(9)
 
@@ -31,7 +31,7 @@ def test_welch_peak_location():
 
 
 def test_calculate_noise_jax_backend(tmp_path, monkeypatch):
-    from gpu_sdr_tpu.engine.channel import ChainChannel, IdealChannel
+    from gpu_sdr.engine.channel import ChainChannel, IdealChannel
     monkeypatch.chdir(tmp_path)
     rate = int(1e6)
     # real noise floor so both backends measure physics, not float eps
@@ -48,10 +48,10 @@ def test_calculate_noise_jax_backend(tmp_path, monkeypatch):
     assert np.max(np.abs(real_j[0] - real_s[0])) < 0.5
 
 
-def test_best_split_tpu_alignment():
-    """Sublane-aligned stage-1 with near-128 stage-2 (measured fastest on
-    TPU, tools/perf_split_sweep.py); balanced fallback otherwise."""
-    from gpu_sdr_tpu.ops.cplx import _best_split
+def test_best_split_aligned_first_stage():
+    """A multiple-of-8 first stage with a 64..160 second stage when one
+    exists; balanced fallback otherwise."""
+    from gpu_sdr.ops.cplx import _best_split
     assert _best_split(1000) == (8, 125)
     assert _best_split(512) == (8, 64)
     n1, n2 = _best_split(100)       # no aligned candidate -> balanced
@@ -61,8 +61,8 @@ def test_best_split_tpu_alignment():
 def test_two_stage_dft_1000_matches_numpy():
     """The headline (8,125) split must match numpy fft (full + scrambled)."""
     import numpy as np
-    from gpu_sdr_tpu.ops import cplx
-    from gpu_sdr_tpu.ops.cplx import DFT
+    from gpu_sdr.ops import cplx
+    from gpu_sdr.ops.cplx import DFT
     rng = np.random.default_rng(11)
     x = (rng.standard_normal((3, 1000)) +
          1j * rng.standard_normal((3, 1000))).astype(np.complex64)

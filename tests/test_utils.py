@@ -7,9 +7,9 @@ import subprocess
 import sys
 import time
 
-from gpu_sdr_tpu.utils.diagnostics import StopWatch, ThroughputMeter, print_params
-from gpu_sdr_tpu.utils.log import get_logger, set_this_thread_name
-from gpu_sdr_tpu.params import AntennaParams, AntMode, UsrpParams, WaveType
+from gpu_sdr.utils.diagnostics import StopWatch, ThroughputMeter, print_params
+from gpu_sdr.utils.log import get_logger, set_this_thread_name
+from gpu_sdr.params import AntennaParams, AntMode, UsrpParams, WaveType
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -45,13 +45,13 @@ def test_log_record_format(tmp_path, monkeypatch):
     """Record format matches the reference:
     TimeStamp;ThreadName;Severity;Message."""
     import importlib
-    import gpu_sdr_tpu.utils.log as L
+    import gpu_sdr.utils.log as L
     monkeypatch.chdir(tmp_path)
     importlib.reload(L)
     L.init_logger(log_dir=str(tmp_path / "logs"))
     L.set_this_thread_name("test_thread")
     L.get_logger("unit").warning("hello world")
-    logging.getLogger("gpu_sdr_tpu").handlers[0].flush()
+    logging.getLogger("gpu_sdr").handlers[0].flush()
     logs = list((tmp_path / "logs").glob("*.log"))
     assert logs
     line = logs[0].read_text().strip().splitlines()[-1]

@@ -8,11 +8,11 @@ import os
 import numpy as np
 import pytest
 
-from gpu_sdr_tpu.client import delay as Udelay
-from gpu_sdr_tpu.client import files as Ufiles
-from gpu_sdr_tpu.client import vna as Uvna
-from gpu_sdr_tpu.engine.channel import (ChainChannel, DelayChannel,
-                                        make_resonator_channel)
+from gpu_sdr.client import delay as Udelay
+from gpu_sdr.client import files as Ufiles
+from gpu_sdr.client import vna as Uvna
+from gpu_sdr.engine.channel import (ChainChannel, DelayChannel,
+                                    make_resonator_channel)
 
 
 @pytest.fixture
@@ -166,7 +166,7 @@ def test_replay_source_short_file_loops(tmp_path):
     """A looped recording shorter than one block wraps as many times as
     needed (regression: single-wrap copy crashed on short files)."""
     import numpy as np
-    from gpu_sdr_tpu.engine.sources import ReplaySource
+    from gpu_sdr.engine.sources import ReplaySource
     rec = (np.arange(300) + 1j).astype(np.complex64)
     p = str(tmp_path / "short.npy")
     np.save(p, rec)

@@ -4,8 +4,8 @@ chirpness quantization exactly."""
 
 import numpy as np
 
-from gpu_sdr_tpu import golden
-from gpu_sdr_tpu.client.vna import effective_final_frequency
+from gpu_sdr import golden
+from gpu_sdr.client.vna import effective_final_frequency
 
 
 def test_effective_final_frequency_inverts_quantization():

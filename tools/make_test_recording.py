@@ -3,7 +3,7 @@
 
 Writes complex64 raw (or .npy) containing a multi-tone comb, optional
 simulated resonator dips and additive noise, suitable for
-`gpu_sdr_tpu.server.main --replay <file>` or ReplaySource.
+`gpu_sdr.server.main --replay <file>` or ReplaySource.
 """
 
 import argparse
@@ -30,7 +30,7 @@ def main():
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
 
-    from gpu_sdr_tpu import golden
+    from gpu_sdr import golden
 
     rate = int(args.rate)
     n = int(args.rate * args.seconds)
@@ -38,7 +38,7 @@ def main():
     x = golden.tone_block(tones, [1.0 / len(tones)] * len(tones), rate,
                           0, n).astype(np.complex64)
     if args.resonator:
-        from gpu_sdr_tpu.engine.channel import make_resonator_channel
+        from gpu_sdr.engine.channel import make_resonator_channel
         f0, qr, qe = args.resonator
         chan = make_resonator_channel(rate,
                                       [dict(f0=f0, Qr=qr, Qe_re=qe)])

@@ -9,9 +9,9 @@ by hand:
       --num_processes 2 --process_id 1
 
 Each process exposes `--devices_per_process` virtual CPU devices (default
-4); jax.distributed joins them into one slice and the (time, channels)
+4); jax.distributed joins them into one cluster and the (time, channels)
 mesh (`--mesh TxC`, default 2x4) spans all processes, so the sharded
-chains run exactly as they would across pod hosts.  Every process checks
+chains run exactly as they would across hosts.  Every process checks
 ITS addressable output shards against the float64 golden oracle and
 prints one JSON line per phase:
 
@@ -68,7 +68,7 @@ def main():
     args = ARGS
     T, Kc = (int(v) for v in args.mesh.lower().split("x"))
 
-    from gpu_sdr_tpu.parallel.distributed import initialize_distributed
+    from gpu_sdr.parallel.distributed import initialize_distributed
     initialize_distributed(coordinator_address=args.coordinator,
                            num_processes=args.num_processes,
                            process_id=args.process_id)
@@ -78,10 +78,10 @@ def main():
     assert jax.device_count() == n_dev, jax.devices()
     assert T * Kc == n_dev, f"mesh {args.mesh} != {n_dev} devices"
 
-    from gpu_sdr_tpu import golden
-    from gpu_sdr_tpu.parallel import make_mesh
-    from gpu_sdr_tpu.parallel.fused_sharded import ShardedFusedDirect
-    from gpu_sdr_tpu.params import AntennaParams, AntMode, WaveType
+    from gpu_sdr import golden
+    from gpu_sdr.parallel import make_mesh
+    from gpu_sdr.parallel.fused_sharded import ShardedFusedDirect
+    from gpu_sdr.params import AntennaParams, AntMode, WaveType
 
     rate, decim, pfa = 1_000_000, 10, 4
     # 8 tones so every mesh channel width in {1,2,4,8} divides the set
@@ -133,10 +133,9 @@ def main():
     # its RX carrier, so both frontends' outputs rotate at df — if packet
     # k of A and B covered different sample instants the residual phases
     # would diverge.
-    os.environ["GPU_SDR_TPU_PALLAS"] = "1"
-    from gpu_sdr_tpu.engine.sinks import MemorySink
-    from gpu_sdr_tpu.measure import run_measurement
-    from gpu_sdr_tpu.params import UsrpParams
+    from gpu_sdr.engine.sinks import MemorySink
+    from gpu_sdr.measure import run_measurement
+    from gpu_sdr.params import UsrpParams
 
     n_tones = 16
     d5 = 100                       # 400-tap FIR: tone isolation (config 5)
@@ -188,9 +187,9 @@ def main():
     # span the processes, so only addressable shards are compared
     # locally): TONES (sharded PFB + owner-local select), NOISE with
     # frame averaging, and the CHIRP lock-in
-    from gpu_sdr_tpu.ops import pfb as pfb_ops
-    from gpu_sdr_tpu.parallel.sharded_pfb import ShardedPFB
-    from gpu_sdr_tpu.parallel.sharded_chirp import ShardedChirpLockin
+    from gpu_sdr.ops import pfb as pfb_ops
+    from gpu_sdr.parallel.sharded_pfb import ShardedPFB
+    from gpu_sdr.parallel.sharded_chirp import ShardedChirpLockin
 
     rng = np.random.default_rng(7)
     results = {}
@@ -255,7 +254,7 @@ def main():
     results["noise_decim_snr_db"] = to_db(worst)
 
     # --- CHIRP: sharded lock-in ---
-    from gpu_sdr_tpu.ops.chirp import ChirpConfig
+    from gpu_sdr.ops.chirp import ChirpConfig
     cp = golden.ChirpParameter(-300_000, 300_000, rate, 1000, 0.1)
     ccfg = ChirpConfig.from_params(-300_000, 300_000, rate, 1000, 0.1)
     ppt = cp.length                   # decim = 1
@@ -285,8 +284,8 @@ def main():
     # group's SHARDED demodulator on the same time-sharded block; every
     # process golden-checks its addressable shards of both outputs
     from jax.sharding import NamedSharding, PartitionSpec
-    from gpu_sdr_tpu.engine import make_demodulator
-    from gpu_sdr_tpu.ops.cplx import C as Cpair
+    from gpu_sdr.engine import make_demodulator
+    from gpu_sdr.ops.cplx import C as Cpair
 
     F_T = [100_000, -200_000]
     cpm = golden.ChirpParameter(-300_000, 300_000, rate, 1000, 0.1)
@@ -342,7 +341,7 @@ def main():
     # this framework's --sw_loop (reference software_rx_thread,
     # cpp/USRP_hardware_manager.cpp:1331-1395); every process receives
     # the gathered global stream and golden-checks it
-    from gpu_sdr_tpu.parallel.sharded_replay import ShardedDeviceReplay
+    from gpu_sdr.parallel.sharded_replay import ShardedDeviceReplay
 
     rxr = AntennaParams(
         mode=AntMode.RX, rate=rate, decim=100, pf_average=pfa,
@@ -375,10 +374,10 @@ def main():
     # headers/USRP_server_memory_management.hpp:210-272)
     import socket
     import threading
-    from gpu_sdr_tpu.engine import make_demodulator
-    from gpu_sdr_tpu.ops import cplx as cplx_ops
-    from gpu_sdr_tpu.parallel.host_ingest import (PerHostIngest,
-                                                  host_stream_for)
+    from gpu_sdr.engine import make_demodulator
+    from gpu_sdr.ops import cplx as cplx_ops
+    from gpu_sdr.parallel.host_ingest import (PerHostIngest,
+                                              host_stream_for)
 
     rxi = AntennaParams(
         mode=AntMode.RX, rate=rate, decim=100, pf_average=pfa,

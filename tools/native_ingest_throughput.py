@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Throughput of the native C++ ingest RECEIVER (VERDICT r3 #4).
+"""Throughput of the native C++ ingest RECEIVER.
 
 The egress side has a number (tools/native_throughput.py: 1.48 GB/s
 framed packets over loopback TCP); this measures the RX half — a
@@ -31,7 +31,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 
 def bench_receiver():
-    from gpu_sdr_tpu.server import native as native_mod
+    from gpu_sdr.server import native as native_mod
     if not native_mod.available():
         print("native library not built (cmake -S native -B native/build)")
         return None
@@ -78,8 +78,8 @@ def bench_perhost_assembly():
     make_array_from_process_local_data assembly cost per block."""
     import jax
     jax.config.update("jax_platforms", "cpu")
-    from gpu_sdr_tpu.parallel import make_mesh
-    from gpu_sdr_tpu.parallel.host_ingest import PerHostIngest
+    from gpu_sdr.parallel import make_mesh
+    from gpu_sdr.parallel.host_ingest import PerHostIngest
     if jax.device_count() < 8:
         print("per-host assembly: needs the 8-device virtual mesh "
               "(XLA_FLAGS=--xla_force_host_platform_device_count=8)")
@@ -119,8 +119,7 @@ def bench_perhost_assembly():
           f"{dt:.2f}s = {gbps:.2f} GB/s ({msps:.0f} Msamples/s) incl. "
           f"socket ingest + make_array_from_process_local_data on the "
           f"8-device mesh = {dt/got*1e3:.1f} ms/block (CPU-mesh device "
-          f"buffers; a real TPU host stages this via device_put at "
-          f"O(10) GB/s)")
+          f"buffers)")
     return gbps
 
 
@@ -128,9 +127,9 @@ def bench_full_duplex():
     """RX ingest + TX egress simultaneously over loopback TCP — the
     reference's full-duplex bar is 2 x 100 Msps = 1.6 GB/s aggregate
     (server_docs/01_installation.md:11)."""
-    from gpu_sdr_tpu.engine.sinks import PacketMeta
-    from gpu_sdr_tpu.server import native as native_mod
-    from gpu_sdr_tpu.server import wire
+    from gpu_sdr.engine.sinks import PacketMeta
+    from gpu_sdr.server import native as native_mod
+    from gpu_sdr.server import wire
     if not native_mod.available():
         return None
     # 2 Msample blocks: the Python-side pop/recv loops run per block,

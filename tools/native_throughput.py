@@ -16,8 +16,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from gpu_sdr_tpu.engine.sinks import PacketMeta  # noqa: E402
-from gpu_sdr_tpu.server import native as native_mod  # noqa: E402
+from gpu_sdr.engine.sinks import PacketMeta  # noqa: E402
+from gpu_sdr.server import native as native_mod  # noqa: E402
 
 
 def main():
@@ -34,7 +34,7 @@ def main():
     def consumer():
         c = socket.create_connection(("127.0.0.1", srv.port), timeout=10)
         c.settimeout(10)
-        from gpu_sdr_tpu.server import wire
+        from gpu_sdr.server import wire
         while received[0] < n_packets:
             raw = wire.recv_exact(c, wire.HEADER_SIZE)
             meta = wire.decode_sync_header(raw)

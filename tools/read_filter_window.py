@@ -22,8 +22,8 @@ def main():
     parser.add_argument("--out", "-o", type=str, default="filter_window.png")
     args = parser.parse_args()
 
-    from gpu_sdr_tpu.ops.windows import pfb_window
-    from gpu_sdr_tpu.ops.fir import fir_taps_direct
+    from gpu_sdr.ops.windows import pfb_window
+    from gpu_sdr.ops.fir import fir_taps_direct
 
     import matplotlib
     matplotlib.use("agg")

@@ -13,7 +13,7 @@ import os
 import sys
 
 _PAGE = """<!DOCTYPE html><html><head><meta charset="utf-8">
-<title>gpu_sdr_tpu server log</title>
+<title>gpu_sdr server log</title>
 <style>
  body {{ font-family: monospace; }}
  table {{ border-collapse: collapse; width: 100%; }}

@@ -50,11 +50,11 @@ def main():
     ap.add_argument("--wait_s", type=float, default=60.0)
     args = ap.parse_args()
 
-    from gpu_sdr_tpu.engine import make_generator
-    from gpu_sdr_tpu.engine.channel import make_resonator_channel
-    from gpu_sdr_tpu.engine.planner import plan_blocks
-    from gpu_sdr_tpu.measure import ChannelSource, _pair_tx
-    from gpu_sdr_tpu.params import AntMode, UsrpParams
+    from gpu_sdr.engine import make_generator
+    from gpu_sdr.engine.channel import make_resonator_channel
+    from gpu_sdr.engine.planner import plan_blocks
+    from gpu_sdr.measure import ChannelSource, _pair_tx
+    from gpu_sdr.params import AntMode, UsrpParams
 
     with open(args.params) as f:
         params = UsrpParams.from_json(f.read())
